@@ -1,4 +1,4 @@
-"""aligator_tpu — a TPU-native trajectory-optimization framework.
+"""aligator_tpu — a batched trajectory-optimization framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-imagination of the capabilities of the
 reference `aligator` library (constrained trajectory optimization with
@@ -16,7 +16,7 @@ Layers (bottom-up), mirroring the reference's architecture
 * :mod:`aligator_tpu.modelling` — concrete spaces, integrators, costs,
   residuals, rigid-body dynamics.
 * :mod:`aligator_tpu.solvers` — ProxDDP and FDDP.
-* :mod:`aligator_tpu.parallel` — mesh/sharding helpers for multi-chip scaling.
+* :mod:`aligator_tpu.parallel` — mesh/sharding helpers for multi-device scaling.
 * :mod:`aligator_tpu.utils` — rollout, logging, plotting.
 """
 
@@ -24,13 +24,11 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Matmul-precision policy (see _precision.py): the TPU's default bf16
-# matmul passes make ~23% of fp32 Riccati solves go non-finite (measured on
-# v5e). Global default is 'high' (3-pass bf16 — fp64-identical convergence
-# statistics for problem evaluation/rollouts, ~2× faster than fp32 passes);
-# the gar numeric core pins 'highest' where μ-scaled KKT blocks demand full
-# fp32 (riccati/parallel/block_tridiag/fddp/contact). Respect an explicit
-# user setting.
+# Matmul-precision policy (see _precision.py): global default 'high' for
+# problem evaluation and rollouts; the gar numeric core pins 'highest'
+# where μ-scaled KKT blocks demand full fp32
+# (riccati/parallel/block_tridiag/fddp/contact). Respect an explicit user
+# setting.
 if _jax.config.jax_default_matmul_precision is None:
     _jax.config.update("jax_default_matmul_precision", "high")
 

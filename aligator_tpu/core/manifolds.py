@@ -1,6 +1,6 @@
 """Manifold (Lie-group) interface.
 
-TPU-native counterpart of ``ManifoldAbstractTpl`` (reference
+Accelerator-native counterpart of ``ManifoldAbstractTpl`` (reference
 ``include/aligator/core/manifold-base.hpp:11``). Manifolds are *static*
 hashable Python objects (they carry no arrays), so they can live in pytree
 metadata and be closed over by jitted functions. All operations are pure

@@ -10,7 +10,7 @@ Counterpart of ``StageModelTpl`` / ``TrajOptProblemTpl`` (reference
 * a :class:`TrajOptProblem` stores ONE stage model whose array leaves carry a
   leading time axis of size N (see :func:`replicate_stage` /
   :func:`stack_stages`). Evaluation and differentiation `vmap` over that axis
-  — the TPU replacement for the reference's OpenMP-parallel stage loops
+  — the accelerator replacement for the reference's OpenMP-parallel stage loops
   (``core/traj-opt-problem.hxx:69,105``).
 * heterogeneity across stages is expressed through stage-varying array
   parameters (weights, targets, contact flags), not through type

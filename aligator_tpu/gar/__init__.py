@@ -1,10 +1,10 @@
 """gar — proximal LQ problems and Riccati solvers (the performance core).
 
-TPU-native counterpart of the reference's ``aligator/gar`` subsystem
+Accelerator-native counterpart of the reference's ``aligator/gar`` subsystem
 (``include/aligator/gar/``): stacked-array LQ problems, a serial proximal
 Riccati solver expressed as `lax.scan`, a parallel-in-time solver via leg
-condensation, an O(log N) associative-scan solver, a fused Pallas TPU
-kernel with a custom_vmap dispatcher, and dense-KKT oracles for testing.
+condensation, an O(log N) associative-scan solver, a fused Triton kernel
+(Pallas) with a custom_vmap dispatcher, and dense-KKT oracles for testing.
 """
 
 from .lqr_problem import (

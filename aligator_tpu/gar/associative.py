@@ -33,7 +33,7 @@ Explicit dynamics (E = −I), ``nth == 0``.
 Reference counterpart: aligator's parallel LQ solver
 (``gar/parallel-solver.hpp:34``) splits the horizon into legs — a 2-level
 condensation; this is the full-depth O(log N) version, which only makes
-sense on hardware with massive data parallelism per time step (TPU/GPU),
+sense on hardware with massive data parallelism per time step (GPUs),
 not on the reference's CPU thread pools.
 """
 

@@ -1,6 +1,6 @@
 """Proximal LQ problem data model (the `gar` layer).
 
-TPU-native re-design of the reference's LQ problem container
+Accelerator-native re-design of the reference's LQ problem container
 (``include/aligator/gar/lqr-problem.hpp:32,198``): instead of a vector of
 heterogeneous per-stage knot objects, a :class:`LQRKnots` is a pytree of
 arrays *stacked over time* with uniform static dims ``(nx, nu, nc)`` — the

@@ -1,36 +1,32 @@
-"""Fused Pallas TPU kernel for the batched proximal Riccati solve.
+"""Fused batched proximal Riccati solve as one Pallas kernel (Triton route).
 
-The XLA scan path (gar/riccati.py + smallmat) runs the backward/forward
-recursions as ~100 sequential fused kernels over (B, n, n) buffers — each
-step round-trips HBM. This kernel fuses the ENTIRE solve (backward sweep +
-initial stage + forward sweep) into one `pallas_call`:
+The XLA scan path (gar/riccati.py + smallmat) runs the backward and forward
+recursions as a ``while`` loop whose body is some 40-50 small operations per
+stage; on a GPU each is its own kernel launch over ``(B, n, n)`` buffers.
+This kernel runs the whole solve (terminal stage, backward sweep, initial
+stage, forward sweep) in one launch:
 
-* layout: the scenario batch lies along the 128-wide lane axis; every scalar
-  entry of the small per-stage matrices is a lane-vector. All linear algebra
-  is statically unrolled scalar arithmetic on (1, 128) vectors (the same
-  closed forms as gar/smallmat.py) — pure VPU work.
-* residency: one batch-tile's whole problem (T stages × F features × 128
-  lanes) lives in VMEM for the duration of the kernel; the recursion is a
-  `fori_loop` with zero HBM traffic per stage.
-* grid: one program per 128-scenario tile.
+* one scenario per lane: a program owns ``block`` scenarios, and every scalar
+  entry of the small per-stage matrices is a ``(block,)`` vector. The linear
+  algebra is statically unrolled scalar arithmetic (the closed forms of
+  gar/smallmat.py), so each lane's Cholesky / Gauss-Jordan algebra stays in
+  registers.
+* layout ``(tiles, T, F, block)``: each per-stage field is one coalesced
+  block-vector load.
+* the value function ``(P, p)`` is a loop carry; the per-stage gains are an
+  output in device memory, written by the backward loop and read back by the
+  forward loop.
+* μ is a per-lane vector: under a vmapped ProxDDP each scenario's
+  augmented-Lagrangian loop evolves μ on its own.
 
-STATUS (round 2): Mosaic-compiled kernel validated on TPU hardware against
-the XLA scan path (fp32 round-off agreement at the bench shape, identical
-KKT-residual distribution) and 13× faster: 7.5 ms vs 99 ms per 8192-solve
-batch at (nx=4, nu=2, nc=2, N=50) on one v5e chip — the scan path pays
-~100 sequential kernel launches of tiny ops, the fused kernel runs the
-whole recursion out of VMEM. μ parameters are runtime SMEM scalars so the
-ProxDDP BCL loop can drive it; gains can be emitted as a second output for
-the solver's forward passes (``return_gains``).
-
-Supports the explicit-dynamics case (E = −I) with static (nx, nu, nc) and
-nc0 = nx — the shape of the batched MPC workloads. Falls back to the XLA
-path otherwise (callers: use `available()`).
+Supports static ``(nx, nu, nc)`` with ``nc0 == nx`` and no θ-block; explicit
+(``E = -I``) or general E (unrolled Gauss-Jordan inverse per stage). Callers
+check :func:`covers` and fall back to the XLA path otherwise.
 
 Feature packing (axis F), per stage t:
   Q (nx*nx) | S (nx*nu) | R (nu*nu) | q (nx) | r (nu) |
-  A (nx*nx) | B (nx*nu) | f (nx) | C (nc*nx) | D (nc*nu) | d (nc)
-plus a stage-independent tail block carrying G0 (nx*nx) and g0 (nx).
+  A (nx*nx) | B (nx*nu) | f (nx) | C (nc*nx) | D (nc*nu) | d (nc) [| E]
+plus a stage-independent block carrying G0 (nx*nx) and g0 (nx).
 Outputs: xs (T,nx) | us (T,nu) | vs (T,nc) | lams (T,nx) packed the same way.
 """
 
@@ -42,22 +38,33 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from .lqr_problem import LQRProblem
 
-LANES = 128
+# Scenarios per program and warps per program: the fastest of seven
+# (block, warps) pairs timed on an H100 at the SE(2) fleet's LQ shape (see
+# PERF.md); both are powers of two, as Triton needs.
+BLOCK = 32
+NUM_WARPS = 1
+# Largest nx and nu the unrolled kernel is built for. Its compile time grows
+# faster than its operation count: on an H100 (nx=3, nu=2, nc=0) compiled in
+# 28 s and (nx=4, nu=2, nc=2) in 169 s; nx=8 has about 8x the operations of
+# nx=4 and was not compiled (see PERF.md).
+MAX_DIM = 4
 
 
-def available(problem: LQRProblem, assume_explicit: bool = True) -> bool:
-    # general E is supported (unrolled Gauss-Jordan inverse per stage), so
-    # ``assume_explicit`` no longer gates eligibility
-    return (
-        problem.nc0 == problem.nx
-        and problem.knots.nth == 0
-        and problem.nx <= 8
-        and problem.nu <= 8
-    )
+def covers(nx, nu, nc0, nth) -> bool:
+    """Whether the kernel covers a problem of this structure (any batch)."""
+    return nc0 == nx and nth == 0 and nx <= MAX_DIM and nu <= MAX_DIM
+
+
+def _layout(sizes):
+    offs, cur = {}, 0
+    for k, v in sizes.items():
+        offs[k] = cur
+        cur += v
+    return offs, cur
 
 
 def _field_layout(nx, nu, nc, with_E=False):
@@ -68,23 +75,19 @@ def _field_layout(nx, nu, nc, with_E=False):
     }
     if with_E:
         sizes["E"] = nx * nx
-    offs, cur = {}, 0
-    for k, v in sizes.items():
-        offs[k] = cur
-        cur += v
-    return offs, cur
+    return _layout(sizes)
 
 
 def _out_layout(nx, nu, nc):
-    sizes = {"xs": nx, "us": nu, "vs": nc, "lams": nx}
-    offs, cur = {}, 0
-    for k, v in sizes.items():
-        offs[k] = cur
-        cur += v
-    return offs, cur
+    return _layout({"xs": nx, "us": nu, "vs": nc, "lams": nx})
 
 
-# ---- scalar-lane linear algebra (lists of (LANES,) vectors) ----
+def _gain_layout(nx, nu, nc):
+    return _layout(dict(kff=nu, K=nu * nx, zff=nc, Z=nc * nx, lff=nx,
+                        L=nx * nx, yff=nx, Afb=nx * nx))
+
+
+# ---- scalar-lane linear algebra (lists of (block,) vectors) ----
 
 
 def _chol(Mf, n):
@@ -169,47 +172,34 @@ def _inv(Mf, n):
 
 
 def _kernel(nx, nu, nc, T, explicit, mu_ref, in_ref, g_ref, out_ref,
-            gains_ref, P_ref, p_ref):
-    offs, F = _field_layout(nx, nu, nc, with_E=not explicit)
-    ooffs, OF = _out_layout(nx, nu, nc)
-    # runtime proximal parameters as LANE VECTORS: under a vmapped ProxDDP
-    # each scenario's BCL loop evolves μ independently, so μ is per-lane,
-    # not a shared scalar (the whole kernel is elementwise over lanes)
-    mudyn = mu_ref[0, 0, :]
-    mueq = mu_ref[0, 1, :]
+            gains_ref):
+    offs, _ = _field_layout(nx, nu, nc, with_E=not explicit)
+    ooffs, _ = _out_layout(nx, nu, nc)
+    goffs, _ = _gain_layout(nx, nu, nc)
+    mudyn = mu_ref[0, :]
+    mueq = mu_ref[1, :]
     inv_mueq = 1.0 / mueq
     inv_mudyn = 1.0 / mudyn
 
     def load_mat(t, name, m, n):
         base = offs[name]
-        return [
-            [in_ref[0, t, base + i * n + j, :] for j in range(n)]
-            for i in range(m)
-        ]
+        return [[in_ref[t, base + i * n + j, :] for j in range(n)]
+                for i in range(m)]
 
     def load_vec(t, name, m):
         base = offs[name]
-        return [in_ref[0, t, base + i, :] for i in range(m)]
-
-    # number of gain features per stage: kff nu | K nu*nx | zff nc | Z nc*nx |
-    # lff nx | L nx*nx | yff nx | Afb nx*nx
-    GK = dict(kff=nu, K=nu * nx, zff=nc, Z=nc * nx, lff=nx, L=nx * nx,
-              yff=nx, Afb=nx * nx)
-    goffs, cur = {}, 0
-    for k, v in GK.items():
-        goffs[k] = cur
-        cur += v
+        return [in_ref[t, base + i, :] for i in range(m)]
 
     def store_gain_mat(t, name, Mf, m, n):
         base = goffs[name]
         for i in range(m):
             for j in range(n):
-                gains_ref[0, t, base + i * n + j, :] = Mf[i][j]
+                gains_ref[t, base + i * n + j, :] = Mf[i][j]
 
     def store_gain_vec(t, name, x, m):
         base = goffs[name]
         for i in range(m):
-            gains_ref[0, t, base + i, :] = x[i]
+            gains_ref[t, base + i, :] = x[i]
 
     def reduced_kkt(Rhat, Ct, Dt, dt_, rhat, ShatT):
         # W = Rhat + D'D/mueq
@@ -267,6 +257,7 @@ def _kernel(nx, nu, nc, T, explicit, mu_ref, in_ref, g_ref, out_ref,
     St = [[Sm[j][i] for j in range(nx)] for i in range(nu)]
     kff, K, zff, Z = reduced_kkt(Rm, Cm, Dm, dv, rv, St)
     # P = Q + C'Z + S K ; p = q + C'zff + S kff
+    P0, p0 = [], []
     for i in range(nx):
         for j in range(nx):
             s = Qm[i][j]
@@ -274,26 +265,35 @@ def _kernel(nx, nu, nc, T, explicit, mu_ref, in_ref, g_ref, out_ref,
                 s = s + Cm[k][i] * Z[k][j]
             for k in range(nu):
                 s = s + Sm[i][k] * K[k][j]
-            P_ref[i * nx + j, :] = s
+            P0.append(s)
         s = qv[i]
         for k in range(nc):
             s = s + Cm[k][i] * zff[k]
         for k in range(nu):
             s = s + Sm[i][k] * kff[k]
-        p_ref[i, :] = s
+        p0.append(s)
     store_gain_vec(t, "kff", kff, nu)
     store_gain_mat(t, "K", K, nu, nx)
     store_gain_vec(t, "zff", zff, nc)
     store_gain_mat(t, "Z", Z, nc, nx)
+    # the terminal stage has no dynamics: its propagation gains are zero,
+    # as on the scan path
+    zvec = [jnp.zeros_like(mudyn)] * nx
+    zmat = [zvec] * nx
+    store_gain_vec(t, "lff", zvec, nx)
+    store_gain_mat(t, "L", zmat, nx, nx)
+    store_gain_vec(t, "yff", zvec, nx)
+    store_gain_mat(t, "Afb", zmat, nx, nx)
 
     # ---------------- backward sweep ----------------
-    def bwd_body(i, _):
+    # the value function (P, p) is the loop carry: nx*nx + nx lane vectors
+    def bwd_body(i, carry):
+        Pflat, pv = carry
         t = T - 2 - i
-        P = [[P_ref[a * nx + b_, :] for b_ in range(nx)] for a in range(nx)]
-        pv = [p_ref[a, :] for a in range(nx)]
+        P = [[Pflat[a * nx + b_] for b_ in range(nx)] for a in range(nx)]
         if explicit:
             # E = -I: Ptilde = P, ptilde = p
-            Pt, pt = P, pv
+            Pt, pt = P, list(pv)
             Einv = None
         else:
             # general E: Ptilde = E^{-T} P E^{-1}, ptilde = -E^{-T} p
@@ -406,10 +406,6 @@ def _kernel(nx, nu, nc, T, explicit, mu_ref, in_ref, g_ref, out_ref,
             for k in range(nc):
                 s = s + Cm[k][a] * zff[k]
             newp[a] = s
-        for a in range(nx):
-            for b_ in range(nx):
-                P_ref[a * nx + b_, :] = 0.5 * (newP[a][b_] + newP[b_][a])
-            p_ref[a, :] = newp[a]
 
         store_gain_vec(t, "kff", kff, nu)
         store_gain_mat(t, "K", K, nu, nx)
@@ -419,19 +415,19 @@ def _kernel(nx, nu, nc, T, explicit, mu_ref, in_ref, g_ref, out_ref,
         store_gain_mat(t, "L", L, nx, nx)
         store_gain_vec(t, "yff", yff, nx)
         store_gain_mat(t, "Afb", Afb, nx, nx)
-        return 0
+        Pflat = [0.5 * (newP[a][b_] + newP[b_][a])
+                 for a in range(nx) for b_ in range(nx)]
+        return Pflat, newp
 
-    lax.fori_loop(0, T - 1, bwd_body, 0, unroll=False)
+    Pflat, pv = lax.fori_loop(0, T - 1, bwd_body, (P0, p0))
 
     # ---------------- initial stage ----------------
-    G0 = [[g_ref[0, i * nx + j, :] for j in range(nx)] for i in range(nx)]
-    g0 = [g_ref[0, nx * nx + i, :] for i in range(nx)]
-    P = [[P_ref[a * nx + b_, :] for b_ in range(nx)] for a in range(nx)]
-    pv = [p_ref[a, :] for a in range(nx)]
+    G0 = [[g_ref[i * nx + j, :] for j in range(nx)] for i in range(nx)]
+    g0 = [g_ref[nx * nx + i, :] for i in range(nx)]
     W = [[None] * nx for _ in range(nx)]
     for i in range(nx):
         for j in range(nx):
-            s = P[i][j]
+            s = Pflat[i * nx + j]
             for k in range(nx):
                 s = s + G0[k][i] * G0[k][j] * inv_mudyn
             W[i][j] = s
@@ -443,159 +439,122 @@ def _kernel(nx, nu, nc, T, explicit, mu_ref, in_ref, g_ref, out_ref,
             s = s + G0[k][i] * g0[k] * inv_mudyn
         b.append(-s)
     x0 = _chol_solve_vec(Lw, b, nx)
-    lam0 = []
     for i in range(nx):
         s = g0[i]
         for j in range(nx):
             s = s + G0[i][j] * x0[j]
-        lam0.append(s * inv_mudyn)
-
-    ooffs, _ = _out_layout(nx, nu, nc)
-    for i in range(nx):
-        out_ref[0, 0, ooffs["xs"] + i, :] = x0[i]
-        out_ref[0, 0, ooffs["lams"] + i, :] = lam0[i]
+        out_ref[0, ooffs["lams"] + i, :] = s * inv_mudyn
 
     # ---------------- forward sweep ----------------
-    def fwd_body(t, _):
-        x = [out_ref[0, t, ooffs["xs"] + i, :] for i in range(nx)]
+    def gain(t, name, i):
+        return gains_ref[t, goffs[name] + i, :]
 
-        def g(name, i):
-            return gains_ref[0, t, goffs[name] + i, :]
-
+    def controls(t, x):
+        for i in range(nx):
+            out_ref[t, ooffs["xs"] + i, :] = x[i]
         for i in range(nu):
-            s = g("kff", i)
+            s = gain(t, "kff", i)
             for j in range(nx):
-                s = s + gains_ref[0, t, goffs["K"] + i * nx + j, :] * x[j]
-            out_ref[0, t, ooffs["us"] + i, :] = s
+                s = s + gain(t, "K", i * nx + j) * x[j]
+            out_ref[t, ooffs["us"] + i, :] = s
         for k in range(nc):
-            s = g("zff", k)
+            s = gain(t, "zff", k)
             for j in range(nx):
-                s = s + gains_ref[0, t, goffs["Z"] + k * nx + j, :] * x[j]
-            out_ref[0, t, ooffs["vs"] + k, :] = s
+                s = s + gain(t, "Z", k * nx + j) * x[j]
+            out_ref[t, ooffs["vs"] + k, :] = s
 
-        @pl.when(t < T - 1)
-        def _():
-            for i in range(nx):
-                s = g("lff", i)
-                for j in range(nx):
-                    s = s + gains_ref[0, t, goffs["L"] + i * nx + j, :] * x[j]
-                out_ref[0, t + 1, ooffs["lams"] + i, :] = s
-            for i in range(nx):
-                s = g("yff", i)
-                for j in range(nx):
-                    s = s + gains_ref[0, t, goffs["Afb"] + i * nx + j, :] * x[j]
-                out_ref[0, t + 1, ooffs["xs"] + i, :] = s
+    def fwd_body(t, x):
+        controls(t, x)
+        for i in range(nx):
+            s = gain(t, "lff", i)
+            for j in range(nx):
+                s = s + gain(t, "L", i * nx + j) * x[j]
+            out_ref[t + 1, ooffs["lams"] + i, :] = s
+        x_next = []
+        for i in range(nx):
+            s = gain(t, "yff", i)
+            for j in range(nx):
+                s = s + gain(t, "Afb", i * nx + j) * x[j]
+            x_next.append(s)
+        return x_next
 
-        return 0
-
-    lax.fori_loop(0, T, fwd_body, 0, unroll=False)
-
-
-def _gain_layout(nx, nu, nc):
-    sizes = dict(kff=nu, K=nu * nx, zff=nc, Z=nc * nx, lff=nx, L=nx * nx,
-                 yff=nx, Afb=nx * nx)
-    offs, cur = {}, 0
-    for k, v in sizes.items():
-        offs[k] = cur
-        cur += v
-    return offs, cur
+    xN = lax.fori_loop(0, T - 1, fwd_body, x0)
+    controls(T - 1, xN)
 
 
 def solve(problem: LQRProblem, mudyn, mueq, interpret=False,
           return_gains=False, assume_explicit=True):
-    """Batched fused solve. ``problem`` leaves must carry a leading batch
-    axis (vmap-style stacking); batch must be a multiple of 128.
+    """Batched fused solve. ``problem`` leaves carry a leading batch axis
+    (vmap-style stacking) whose size is a multiple of ``BLOCK``.
 
     Returns ``(xs, us, vs, lams)`` with leading batch axis; with
     ``return_gains=True`` additionally a dict of per-stage gain arrays
     ``kff (B,T,nu) | K (B,T,nu,nx) | zff | Z | lff | L | yff | Afb`` (what
     ProxDDP's forward passes and MPC feedback consume). ``mudyn``/``mueq``
-    may be traced, and either scalars or per-problem ``(B,)`` vectors (a
-    vmapped ProxDDP evolves μ independently per scenario); they ride into
-    the kernel as lane vectors.
+    may be traced, and either scalars or per-problem ``(B,)`` vectors; they
+    enter the kernel as lane vectors. ``interpret`` runs the kernel in
+    the Pallas interpreter (CPU tests).
     """
     kn = problem.knots
     nx, nu, nc = kn.nx, kn.nu, kn.nc
     Bsz = kn.Q.shape[0]
     T = kn.Q.shape[1]
     dt = kn.Q.dtype
-    if Bsz % LANES != 0:
-        raise ValueError(f"batch {Bsz} must be a multiple of {LANES}")
+    block = BLOCK
+    if Bsz % block != 0:
+        raise ValueError(f"batch {Bsz} must be a multiple of {block}")
 
-    offs, F = _field_layout(nx, nu, nc, with_E=not assume_explicit)
+    _, F = _field_layout(nx, nu, nc, with_E=not assume_explicit)
     ooffs, OF = _out_layout(nx, nu, nc)
     goffs, GF = _gain_layout(nx, nu, nc)
 
-    def pack(name, a, m, n=None):
-        # a: (B, T, m[, n]) → features (B, T, sz)
-        sz = m if n is None else m * n
-        return a.reshape(Bsz, T, sz)
-
     blocks = [
-        pack("Q", kn.Q, nx, nx), pack("S", kn.S, nx, nu),
-        pack("R", kn.R, nu, nu), pack("q", kn.q, nx), pack("r", kn.r, nu),
-        pack("A", kn.A, nx, nx), pack("B", kn.B, nx, nu),
-        pack("f", kn.f, nx), pack("C", kn.C, nc, nx),
-        pack("D", kn.D, nc, nu), pack("d", kn.d, nc),
+        kn.Q, kn.S, kn.R, kn.q, kn.r, kn.A, kn.B, kn.f, kn.C, kn.D, kn.d,
     ]
     if not assume_explicit:
-        blocks.append(pack("E", kn.E, nx, nx))
-    feats = jnp.concatenate(blocks, axis=-1)  # (B, T, F)
+        blocks.append(kn.E)
+    feats = jnp.concatenate([a.reshape(Bsz, T, -1) for a in blocks], axis=-1)
+    assert feats.shape[-1] == F
     g0feats = jnp.concatenate(
         [problem.G0.reshape(Bsz, nx * nx), problem.g0.reshape(Bsz, nx)],
         axis=-1,
     )  # (B, nx*nx + nx)
 
-    # (B, T, F) → (tiles, T, F, 128)
-    tiles = Bsz // LANES
-    feats = feats.reshape(tiles, LANES, T, F).transpose(0, 2, 3, 1)
-    g0feats = g0feats.reshape(tiles, LANES, nx * nx + nx).transpose(0, 2, 1)
+    # (B, T, F) → (tiles, T, F, block): a field of one stage is one
+    # contiguous block-vector
+    tiles = Bsz // block
+    feats = feats.reshape(tiles, block, T, F).transpose(0, 2, 3, 1)
+    g0feats = g0feats.reshape(tiles, block, nx * nx + nx).transpose(0, 2, 1)
     mu_arr = jnp.stack(
         [
             jnp.broadcast_to(jnp.asarray(mudyn, dt), (Bsz,)),
             jnp.broadcast_to(jnp.asarray(mueq, dt), (Bsz,)),
         ],
         axis=-1,
-    )  # (B, 2) → per-lane μ
-    mu_arr = mu_arr.reshape(tiles, LANES, 2).transpose(0, 2, 1)
+    )
+    mu_arr = mu_arr.reshape(tiles, block, 2).transpose(0, 2, 1)
 
     kern = functools.partial(_kernel, nx, nu, nc, T, bool(assume_explicit))
 
-    in_specs = [
-        pl.BlockSpec((1, 2, LANES), lambda i: (i, 0, 0)),
-        pl.BlockSpec((1, T, F, LANES), lambda i: (i, 0, 0, 0)),
-        pl.BlockSpec((1, nx * nx + nx, LANES), lambda i: (i, 0, 0)),
-    ]
-    sol_spec = pl.BlockSpec((1, T, OF, LANES), lambda i: (i, 0, 0, 0))
-    sol_shape = jax.ShapeDtypeStruct((tiles, T, OF, LANES), dt)
-    scratch = [
-        pltpu.VMEM((nx * nx, LANES), dt),
-        pltpu.VMEM((nx, LANES), dt),
-    ]
-    if return_gains:
-        gain_spec = pl.BlockSpec((1, T, GF, LANES), lambda i: (i, 0, 0, 0))
-        gain_shape = jax.ShapeDtypeStruct((tiles, T, GF, LANES), dt)
-        out, gains = pl.pallas_call(
-            kern,
-            grid=(tiles,),
-            in_specs=in_specs,
-            out_specs=(sol_spec, gain_spec),
-            out_shape=(sol_shape, gain_shape),
-            scratch_shapes=scratch,
-            interpret=interpret,
-        )(mu_arr, feats, g0feats)
-    else:
-        # gains stay in a VMEM scratch (no HBM write)
-        out = pl.pallas_call(
-            kern,
-            grid=(tiles,),
-            in_specs=in_specs,
-            out_specs=sol_spec,
-            out_shape=sol_shape,
-            scratch_shapes=[pltpu.VMEM((1, T, GF, LANES), dt)] + scratch,
-            interpret=interpret,
-        )(mu_arr, feats, g0feats)
-        gains = None
+    def spec(*shape):
+        return pl.BlockSpec((None,) + shape + (block,),
+                            lambda i: (i,) + (0,) * (len(shape) + 1))
+
+    out, gains = pl.pallas_call(
+        kern,
+        grid=(tiles,),
+        in_specs=[spec(2), spec(T, F), spec(nx * nx + nx)],
+        out_specs=(spec(T, OF), spec(T, GF)),
+        out_shape=(
+            jax.ShapeDtypeStruct((tiles, T, OF, block), dt),
+            jax.ShapeDtypeStruct((tiles, T, GF, block), dt),
+        ),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+        name="riccati_fused",
+    )(mu_arr, feats, g0feats)
 
     out = out.transpose(0, 3, 1, 2).reshape(Bsz, T, OF)
     xs = out[..., ooffs["xs"] : ooffs["xs"] + nx]
@@ -610,8 +569,8 @@ def solve(problem: LQRProblem, mudyn, mueq, interpret=False,
     def unpack(name, m, n=None):
         base = goffs[name]
         sz = m if n is None else m * n
-        block = g[..., base : base + sz]
-        return block if n is None else block.reshape(Bsz, T, m, n)
+        blk = g[..., base : base + sz]
+        return blk if n is None else blk.reshape(Bsz, T, m, n)
 
     gain_arrays = dict(
         kff=unpack("kff", nu), K=unpack("K", nu, nx),

@@ -1,11 +1,11 @@
 """Parallel-in-time proximal Riccati solver (leg condensation).
 
-TPU-native re-design of the reference's ``ParallelRiccatiSolver``
+Accelerator-native re-design of the reference's ``ParallelRiccatiSolver``
 (``include/aligator/gar/parallel-solver.hxx``, RSS 2024): the horizon is
 split into L legs; each non-last leg is θ-parameterized by the costate
 at its outgoing interface (``setupKnot``: Gx = Aᵀ, Gu = Bᵀ, Gth = −μ_dyn I,
 γ = f — ``parallel-solver.hpp:43-51``); the per-leg backward sweeps run
-**batched via `vmap`** over the leg axis (the TPU replacement for OpenMP
+**batched via `vmap`** over the leg axis (the accelerator replacement for OpenMP
 threads — and shardable across devices along that axis); their boundary
 value functions are assembled into a symmetric block-tridiagonal "condensed"
 interface system solved by a short `lax.scan`; forward substitution seeds
@@ -14,10 +14,10 @@ each leg from the condensed solution and again `vmap`s over legs.
 Non-divisible horizons use the reference's balanced split (``get_work``,
 ``gar/work.hpp:17-22``): leg lengths differ by at most one, realized as (at
 most) two uniform-shape leg groups so every sweep stays a vmap over static
-shapes — the TPU-native equivalent of ragged work ranges.
+shapes — the accelerator-native equivalent of ragged work ranges.
 
 Requirement: ``nc0 == nx`` (state-dimension initial constraint) so the
-condensed blocks are uniform — the natural TPU padding convention.
+condensed blocks are uniform — the natural accelerator padding convention.
 
 Operating domain: stage-wise jointly convex costs (``[[Q, S], [S', R]]``
 PSD) — which is what ProxDDP emits by construction (Gauss-Newton

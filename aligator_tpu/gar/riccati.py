@@ -1,6 +1,6 @@
 """Serial proximal Riccati solver as a `lax.scan`.
 
-TPU-native re-derivation of the reference's stagewise backward recursion for
+Accelerator-native re-derivation of the reference's stagewise backward recursion for
 the dual-regularized LQ problem (``include/aligator/gar/riccati-kernel.hxx``):
 
 * the per-stage reduced KKT ``[[R̂, D'], [D, -μ_eq I]]`` is solved by **Schur
@@ -8,7 +8,7 @@ the dual-regularized LQ problem (``include/aligator/gar/riccati-kernel.hxx``):
   symmetric positive definite thanks to the proximal regularization, so a
   Cholesky factorization suffices. This deliberately replaces the reference's
   Bunch-Kaufman with data-*independent* control flow (no pivoting), which is
-  what vectorizes on the MXU.
+  what vectorizes over a batch.
 * the Schur matrix ``I + μ_dyn·P̃`` trick for implicit dynamics
   ``E x' + A x + B u + f = 0`` is kept; when ``assume_explicit`` is set,
   ``E = -I`` is exploited and the E-factorization is skipped entirely.
@@ -51,121 +51,16 @@ def _spd_solver(M):
     return smallmat.spd_solver(M)
 
 
-@jax.custom_batching.custom_vmap
-def _spd_solve_dispatch(M, B):
-    """SPD multi-RHS solve that, under an outer ``vmap`` (the batched-MPC
-    execution model), routes the whole batch to the batch-on-lanes Pallas
-    Cholesky kernel (``pallas_spd``) when eligible: TPU backend, fp32,
-    medium dims (n >= 12), exactly one batch axis.  Batches that are
-    not a multiple of 128 are padded with identity systems (zero RHS) up
-    to the next lane-tile boundary — one 128-lane tile costs the same
-    for 16 live lanes as for 128, so e.g. the batch-16 Talos walk rides
-    the kernel at 1/8 lane occupancy rather than falling back.
-    Unbatched (or ineligible) it is ``smallmat.solve_spd``.
-    Round-4 VERDICT item 4 (the medium-dim Schur-solve spike)."""
-    return smallmat.solve_spd(M, B)
+def spd_solve(M, B):
+    """Differentiable SPD solve ``M X = B`` (``smallmat.solve_spd`` inside).
 
-
-def spd_lanes_eligible(axis_size, n, r, dtype, ndim_M=3, ndim_B=3,
-                       backend=None):
-    """Static eligibility of a batched SPD solve for the batch-on-lanes
-    Pallas kernel.  The VMEM bound is a conservative per-tile estimate for
-    the scratch-free kernel: double-buffered in/out blocks only (n² + 2nr),
-    128 lanes, fp32 — stay under ~12 MB of the 16 MB budget.  History: the
-    4-scratch variant measured 16.4 MB at n=56/r=57 (scoped-vmem OOM), the
-    2-scratch in-place one 13 MB (still over cap); storing L in the
-    consumed A block + in-place substitution brings the same tile to
-    ~9.8 MB, which is what makes the Talos-dim (ndx=56) Schur solve
-    eligible.  The ``axis_size >= 8`` floor keeps tiny live batches (which
-    would pay a full 128-lane tile + two concatenate copies) on the XLA
-    fallback — only batch ≥ 16 was measured as a win (round-4 ADVICE)."""
-    if backend is None:
-        backend = jax.default_backend()
-    vmem_est = 4 * 128 * 2 * (n * n + 2 * n * r)
-    return (
-        backend == "tpu"
-        and dtype == jnp.float32
-        and ndim_M == 3
-        and ndim_B == 3
-        and axis_size >= 8
-        and n >= 12
-        and vmem_est < 12 * 1024 * 1024
-    )
-
-
-def spd_solve_lanes_padded(M_b, B_b, interpret=False):
-    """Batched SPD solve through the lanes kernel with identity padding to
-    the next 128-lane tile boundary (one tile costs the same for 16 live
-    lanes as for 128, so e.g. the batch-16 Talos walk rides the kernel at
-    1/8 lane occupancy rather than falling back).  Padded systems are
-    identity matrices with zero RHS.  ``interpret`` runs the Pallas kernel
-    in interpret mode so the pad-concatenate-slice logic is testable on
-    CPU (round-4 ADVICE)."""
-    from . import pallas_spd
-
-    axis_size, n = M_b.shape[0], M_b.shape[-1]
-    pad = (-axis_size) % 128
-    if pad:
-        eye = jnp.broadcast_to(jnp.eye(n, dtype=M_b.dtype), (pad, n, n))
-        M_p = jnp.concatenate([M_b, eye], axis=0)
-        B_p = jnp.concatenate(
-            [B_b, jnp.zeros((pad,) + B_b.shape[1:], B_b.dtype)], axis=0
-        )
-        return pallas_spd.spd_solve_lanes(M_p, B_p, interpret=interpret)[
-            :axis_size
-        ]
-    return pallas_spd.spd_solve_lanes(M_b, B_b, interpret=interpret)
-
-
-@jax.custom_batching.custom_vmap
-def _spd_solve_flat(M, B):
-    """Batched SPD solve over ONE collapsed leading axis (K, n, n) /
-    (K, n, r).  Under FURTHER vmaps the rule below folds the new axis into
-    the leading one and recurses, so arbitrarily nested vmaps (e.g. the
-    scenario × stage nesting of the batched whole-body derivative pass)
-    collapse to a single flat batch — which is what makes the batch-on-
-    lanes kernel eligibility decision see the TOTAL live batch instead of
-    the innermost axis only."""
-    axis_size, n = M.shape[0], M.shape[-1]
-    r = B.shape[-1] if B.ndim == 3 else 0
-    if spd_lanes_eligible(axis_size, n, r, M.dtype, M.ndim, B.ndim):
-        return spd_solve_lanes_padded(M, B)
-    return jax.vmap(smallmat.solve_spd)(M, B)
-
-
-@_spd_solve_flat.def_vmap
-def _spd_solve_flat_rule(axis_size, in_batched, M, B):
-    mb, bb = in_batched
-    M_b = M if mb else jnp.broadcast_to(M[None], (axis_size,) + M.shape)
-    B_b = B if bb else jnp.broadcast_to(B[None], (axis_size,) + B.shape)
-    out = _spd_solve_flat(
-        M_b.reshape((-1,) + M_b.shape[2:]),
-        B_b.reshape((-1,) + B_b.shape[2:]),
-    )
-    return out.reshape((axis_size, -1) + out.shape[1:]), True
-
-
-@_spd_solve_dispatch.def_vmap
-def _spd_solve_dispatch_rule(axis_size, in_batched, M, B):
-    mb, bb = in_batched
-    M_b = M if mb else jnp.broadcast_to(M[None], (axis_size,) + M.shape)
-    B_b = B if bb else jnp.broadcast_to(B[None], (axis_size,) + B.shape)
-    return _spd_solve_flat(M_b, B_b), True
-
-
-def spd_solve_dispatch(M, B):
-    """Differentiable batched-SPD-solve dispatch.
-
-    ``custom_vmap`` (the kernel-routing layer, :func:`_spd_solve_dispatch`)
-    does not support autodiff, but callers like the contact-dynamics KKT
-    (``modelling/multibody/contact.py``) must stay differentiable in BOTH
-    modes (loop constraints and model-parameter tangents differentiate
-    straight through the solve; the solver's GN assembly uses jacfwd, the
-    test oracles use jacrev).  ``lax.custom_linear_solve`` provides the
-    implicit-function JVP *and* the transpose rule (symmetric system ⇒
-    the transpose solve is the same solve), with every inner solve riding
-    the same dispatch — and therefore the same Pallas kernel when
-    eligible."""
+    Callers like the contact-dynamics KKT (``modelling/multibody/contact.py``)
+    must stay differentiable in BOTH modes (loop constraints and
+    model-parameter tangents differentiate straight through the solve; the
+    solver's GN assembly uses jacfwd, the test oracles use jacrev).
+    ``lax.custom_linear_solve`` provides the implicit-function JVP *and* the
+    transpose rule (symmetric system ⇒ the transpose solve is the same
+    solve)."""
 
     def mv(x):
         if x.ndim == M.ndim:  # matrix RHS
@@ -173,7 +68,7 @@ def spd_solve_dispatch(M, B):
         return (M @ x[..., None])[..., 0]
 
     return lax.custom_linear_solve(
-        mv, B, solve=lambda _, b: _spd_solve_dispatch(M, b),
+        mv, B, solve=lambda _, b: smallmat.solve_spd(M, b),
         symmetric=True,
     )
 
@@ -225,18 +120,16 @@ def _reduced_kkt_solve(Rhat, D, mueq, rhs_u, rhs_c):
 
 
 def _reduced_kkt_solve_joint(Rhat, D, mueq, rhs_u_vec, rhs_c_vec,
-                             rhs_u_mat, rhs_c_mat, spd_lanes: bool = False):
+                             rhs_u_mat, rhs_c_mat):
     """Feedforward + feedback reduced-KKT solves against ONE multi-RHS
     triangular sweep — the (nu,) and (nu, nx[+nth]) right-hand sides share
     one factorization and one traversal (reference solves them separately
-    through one BunchKaufman object, riccati-kernel.hxx:166-229). Measured
-    perf-neutral on v5e at nx=36 (see README medium-dim roofline); kept
-    for the smaller traced graph. Returns (u_vec, nu_vec, U_mat, NU_mat)."""
+    through one BunchKaufman object, riccati-kernel.hxx:166-229).
+    Returns (u_vec, nu_vec, U_mat, NU_mat)."""
     W = Rhat + (D.T @ D) / mueq
     Bu = jnp.concatenate([rhs_u_vec[..., None], rhs_u_mat], axis=-1)
     Bc = jnp.concatenate([rhs_c_vec[..., None], rhs_c_mat], axis=-1)
-    solver = _spd_solve_dispatch if spd_lanes else _chol_solve
-    U = solver(_sym(W), Bu + (D.T @ Bc) / mueq)
+    U = _chol_solve(_sym(W), Bu + (D.T @ Bc) / mueq)
     NU = (D @ U - Bc) / mueq
     return U[..., 0], NU[..., 0], U[..., 1:], NU[..., 1:]
 
@@ -266,16 +159,14 @@ def _terminal_solve(kn, t, mueq, nth):
 
 
 def _stage_kernel(knot, carry, mudyn, mueq, assume_explicit, nth,
-                  bf16_prop: bool = False, spd_lanes: bool = False):
+                  bf16_prop: bool = False):
     """One backward Riccati stage (reference stageKernelSolve,
     riccati-kernel.hxx:166). ``carry`` holds the next stage's value function
     (P, p) and, if parametric, (Vxt, Vtt, vt).
 
-    Keep the products SEPARATE: packing them into ≤128-wide panels
-    (one Schur solve, one reduced-KKT solve, [A|B] GEMMs) was measured
-    SLOWER end-to-end on v5e — +60% at nx=4, +40% at nx=36 — because the
-    per-stage concatenate/slice copies cost more HBM traffic than the
-    merged matmuls save (see README "medium-dim Riccati roofline")."""
+    The products are kept separate rather than packed into wide panels
+    (one Schur solve, one reduced-KKT solve, [A|B] GEMMs): packing adds a
+    concatenate/slice copy per stage for every merged matmul."""
     Q, S, R = knot["Q"], knot["S"], knot["R"]
     q, r = knot["q"], knot["r"]
     A, B, E, f = knot["A"], knot["B"], knot["E"], knot["f"]
@@ -297,16 +188,10 @@ def _stage_kernel(knot, carry, mudyn, mueq, assume_explicit, nth,
 
     schur = eye + mudyn * Ptilde
     schur_sym = _sym_pd(schur)
-    if spd_lanes:
-        schur_solve = lambda X: _spd_solve_dispatch(schur_sym, X)  # noqa: E731
-    else:
-        schur_solve = _spd_solver(schur_sym)
+    schur_solve = _spd_solver(schur_sym)
     # ONE multi-RHS solve for [Vxx | vx] (and one per reduced KKT below):
     # merging the matrix and vector right-hand sides halves the number of
-    # triangular-solve traversals per stage. Measured perf-NEUTRAL on v5e
-    # at nx=36 (255 vs 256 ms/batch — XLA's per-op overhead is not the
-    # marginal cost there; see README medium-dim roofline). Kept: identical
-    # numerics, smaller traced graph.
+    # triangular-solve traversals per stage and shrinks the traced graph.
     sol = schur_solve(
         jnp.concatenate([Ptilde, (ptilde + Ptilde @ f)[..., None]], axis=-1)
     )
@@ -314,17 +199,16 @@ def _stage_kernel(knot, carry, mudyn, mueq, assume_explicit, nth,
     vx = sol[..., nx]
 
     if bf16_prop:
-        # ablation knob (round-3 VERDICT item 3b): run the value-propagation
-        # GEMMs A'V, B'V, A'VA, B'VB, A'VB in bf16 inputs with fp32
-        # accumulation, keeping the KKT core (Schur solve, reduced KKT,
-        # gains) in fp32 per the _precision.py policy. Halves the HBM bytes
-        # of the widest per-stage operands at medium dims. Note the second
-        # GEMM row deliberately re-rounds the fp32 accumulator AtV/BtV back
-        # to bf16 (AtV.astype(bf)) before contracting with A/B — i.e. the
-        # knob measures the full "bf16 operand traffic" regime with TWO
-        # rounding steps per chained product, not a single-rounding
-        # mixed-precision dot; that is the off-by-default ablation as
-        # measured (round 3: +5% speed, 160x dual-residual degradation).
+        # ablation knob: run the value-propagation GEMMs A'V, B'V, A'VA,
+        # B'VB, A'VB in bf16 inputs with fp32 accumulation, keeping the KKT
+        # core (Schur solve, reduced KKT, gains) in fp32 per the
+        # _precision.py policy. Halves the bytes of the widest per-stage
+        # operands at medium dims. The second GEMM row deliberately
+        # re-rounds the fp32 accumulator AtV/BtV back to bf16 before
+        # contracting with A/B — the knob measures the full "bf16 operand
+        # traffic" regime with TWO rounding steps per chained product, not
+        # a single-rounding mixed-precision dot. Off by default: it costs
+        # about two orders of magnitude of dual residual.
         bf = jnp.bfloat16
         Ab, Bb, Vb = A.astype(bf), B.astype(bf), Vxx.astype(bf)
         AtV = jnp.matmul(Ab.T, Vb, preferred_element_type=dt)
@@ -342,7 +226,7 @@ def _stage_kernel(knot, carry, mudyn, mueq, assume_explicit, nth,
     rhat = r + B.T @ vx
 
     kff, zff, K, Z = _reduced_kkt_solve_joint(
-        Rhat, D, mueq, -rhat, -d, -Shat.T, -C, spd_lanes=spd_lanes
+        Rhat, D, mueq, -rhat, -d, -Shat.T, -C
     )
 
     lff = vx + Vxx @ (B @ kff)
@@ -391,121 +275,6 @@ def _stage_kernel(knot, carry, mudyn, mueq, assume_explicit, nth,
     return new_carry, out
 
 
-def _make_sweep_scan(assume_explicit, nth, unroll, bf16_prop, spd_lanes):
-    """Build the (memoized) custom_vmap dispatcher for the backward-sweep
-    scan.  Unbatched it is the plain ``lax.scan`` over ``_stage_kernel``;
-    under an outer ``vmap`` (the batched-MPC execution model) the WHOLE
-    sweep is routed to the fused whole-stage batch-on-lanes Pallas kernel
-    (``pallas_stage.sweep_lanes``) when eligible — medium dims, fp32,
-    explicit dynamics, no θ-block, batch a multiple of 128.  This is the
-    round-4 VERDICT item-3 fusion: Schur solve + value GEMMs + reduced-KKT
-    assembly + gains in ONE dispatch per stage, no intermediate HBM
-    round-trips."""
-
-    def scan_fn(knot_fields, carry0, mudyn, mueq):
-        def scan_body(carry, knot):
-            return _stage_kernel(knot, carry, mudyn, mueq, assume_explicit,
-                                 nth, bf16_prop, spd_lanes)
-
-        return lax.scan(scan_body, carry0, knot_fields, reverse=True,
-                        unroll=unroll)
-
-    @jax.custom_batching.custom_vmap
-    def fn(knot_fields, carry0, mudyn, mueq):
-        return scan_fn(knot_fields, carry0, mudyn, mueq)
-
-    @fn.def_vmap
-    def _rule(axis_size, in_batched, knot_fields, carry0, mudyn, mueq):
-        from . import pallas_stage
-
-        def bcast(leaf, is_b):
-            leaf = jnp.asarray(leaf)
-            return leaf if is_b else jnp.broadcast_to(
-                leaf[None], (axis_size,) + leaf.shape
-            )
-
-        kf_b, c0_b, mud_b, mue_b = jax.tree.map(
-            bcast, [knot_fields, carry0, mudyn, mueq], list(in_batched)
-        )
-        Q = kf_b["Q"]
-        eligible = (
-            Q.ndim == 4  # exactly one batch axis
-            and nth == 0
-            and pallas_stage.fused_stage_eligible(
-                axis_size, Q.shape[-1], kf_b["R"].shape[-1],
-                kf_b["C"].shape[-2], Q.dtype, nth, assume_explicit,
-            )
-        )
-        if eligible:
-            out = pallas_stage.sweep_lanes(kf_b, c0_b, mud_b, mue_b)
-        else:
-            out = jax.vmap(scan_fn)(kf_b, c0_b, mud_b, mue_b)
-        return out, jax.tree.map(lambda _: True, out)
-
-    return fn
-
-
-_SWEEP_SCAN = {}
-
-
-def _get_sweep_scan(assume_explicit, nth, unroll, bf16_prop, spd_lanes):
-    key = (bool(assume_explicit), int(nth), int(unroll), bool(bf16_prop),
-           bool(spd_lanes))
-    fn = _SWEEP_SCAN.get(key)
-    if fn is None:
-        fn = _SWEEP_SCAN[key] = _make_sweep_scan(*key)
-    return fn
-
-
-def _forward_body(x, t_factors):
-    """Forward-substitution stage body (no-θ case; reference forwardImpl,
-    riccati-kernel.hxx:302) — shared by the inline scan and the lanes
-    dispatch below."""
-    u = t_factors["kff"] + t_factors["K"] @ x
-    v = t_factors["zff"] + t_factors["Z"] @ x
-    lam_next = t_factors["lff"] + t_factors["L"] @ x
-    x_next = t_factors["yff"] + t_factors["Afb"] @ x
-    return x_next, dict(x=x, u=u, v=v, lam_next=lam_next)
-
-
-@jax.custom_batching.custom_vmap
-def _forward_scan_dispatch(fields, x0):
-    """Forward-substitution scan that, under an outer ``vmap``, routes the
-    whole batch to the lanes forward kernel (``pallas_stage.forward_lanes``)
-    when eligible — the per-stage 4-matvec body is tiny batched GEMVs XLA
-    cannot tile (measured ~22 ms of the 113 ms humanoid-dim LQ solve at
-    batch 1024)."""
-    return lax.scan(_forward_body, x0, fields)
-
-
-@_forward_scan_dispatch.def_vmap
-def _forward_scan_rule(axis_size, in_batched, fields, x0):
-    from . import pallas_stage
-
-    def bcast(leaf, is_b):
-        leaf = jnp.asarray(leaf)
-        return leaf if is_b else jnp.broadcast_to(
-            leaf[None], (axis_size,) + leaf.shape
-        )
-
-    fields_b, x0_b = jax.tree.map(bcast, [fields, x0], list(in_batched))
-    K = fields_b["K"]
-    eligible = (
-        K.ndim == 4  # exactly one batch axis
-        and pallas_stage.fwd_lanes_eligible(
-            axis_size, K.shape[-1], K.shape[-2],
-            fields_b["Z"].shape[-2], K.dtype,
-        )
-    )
-    if eligible:
-        out = pallas_stage.forward_lanes(fields_b, x0_b)
-    else:
-        out = jax.vmap(
-            lambda f_, x_: lax.scan(_forward_body, x_, f_)
-        )(fields_b, x0_b)
-    return out, jax.tree.map(lambda _: True, out)
-
-
 def _sym_pd(M):
     return 0.5 * (M + M.T)
 
@@ -529,8 +298,7 @@ def _initial_solve(P0, p0, G0, g0, mudyn, Vxt0=None):
 
 
 def sweep(kn: LQRKnots, mudyn, mueq, assume_explicit: bool = False,
-          unroll: int = 1, bf16_prop: bool = False,
-          spd_lanes: bool = False, stage_fused: bool = False):
+          unroll: int = 1, bf16_prop: bool = False):
     """Backward Riccati sweep over a knot sequence (no initial-stage solve).
 
     Returns ``(carry, stages)`` where ``carry`` is the value function
@@ -560,17 +328,12 @@ def sweep(kn: LQRKnots, mudyn, mueq, assume_explicit: bool = False,
     if nth > 0:
         knot_fields.update(Gx=kn.Gx[:N], Gu=kn.Gu[:N], Gth=kn.Gth[:N], gamma=kn.gamma[:N])
 
-    if stage_fused:
-        fn = _get_sweep_scan(assume_explicit, nth, unroll, bf16_prop,
-                             spd_lanes)
-        carry_f, stages = fn(knot_fields, carry0, mudyn, mueq)
-    else:
-        def scan_body(carry, knot):
-            return _stage_kernel(knot, carry, mudyn, mueq, assume_explicit,
-                                 nth, bf16_prop, spd_lanes)
+    def scan_body(carry, knot):
+        return _stage_kernel(knot, carry, mudyn, mueq, assume_explicit,
+                             nth, bf16_prop)
 
-        carry_f, stages = lax.scan(scan_body, carry0, knot_fields,
-                                   reverse=True, unroll=unroll)
+    carry_f, stages = lax.scan(scan_body, carry0, knot_fields,
+                               reverse=True, unroll=unroll)
 
     zero_vec = jnp.zeros((nx,), dt)
     zero_mat = jnp.zeros((nx, nx), dt)
@@ -612,8 +375,6 @@ def backward(
     assume_explicit: bool = False,
     unroll: int = 1,
     bf16_prop: bool = False,
-    spd_lanes: bool = False,
-    stage_fused: bool = False,
 ) -> RiccatiFactors:
     """Backward Riccati sweep over the full horizon.
 
@@ -626,8 +387,7 @@ def backward(
     nth = kn.nth
 
     carry_f, stages = sweep(kn, mudyn, mueq, assume_explicit,
-                            unroll=unroll, bf16_prop=bf16_prop,
-                            spd_lanes=spd_lanes, stage_fused=stage_fused)
+                            unroll=unroll, bf16_prop=bf16_prop)
 
     P0, p0 = carry_f["P"], carry_f["p"]
     Vxt0 = carry_f["Vxt"] if nth > 0 else None
@@ -675,7 +435,6 @@ def forward(
     x0: Optional[jax.Array] = None,
     lam0: Optional[jax.Array] = None,
     unroll: int = 1,
-    stage_fused: bool = False,
 ):
     """Forward substitution (reference forwardImpl, riccati-kernel.hxx:302).
 
@@ -718,12 +477,7 @@ def forward(
             Lth=factors.Lth[:N], Yth=factors.Yth[:N],
         )
 
-    if stage_fused and not has_th:
-        # lanes forward kernel under vmap (pallas_stage.forward_lanes);
-        # unbatched / ineligible it is the same scan
-        xN, outs = _forward_scan_dispatch(fields, x0)
-    else:
-        xN, outs = lax.scan(body, x0, fields, unroll=unroll)
+    xN, outs = lax.scan(body, x0, fields, unroll=unroll)
 
     uN = factors.kff[N] + factors.K[N] @ xN
     vN = factors.zff[N] + factors.Z[N] @ xN
@@ -748,15 +502,28 @@ def solve(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = False,
 _GAIN_FIELDS = ("kff", "K", "zff", "Z", "lff", "L", "yff", "Afb")
 
 
+def use_fused_kernel(platform, dtype, batch_shape, nx, nu, nc0, nth) -> bool:
+    """Whether a vmapped :func:`solve_and_gains` runs the fused Triton
+    kernel (``pallas_riccati``) rather than the vmapped XLA scan: on a GPU,
+    in float32, over exactly one batch axis whose size is a multiple of the
+    kernel's block, for the problem structure the kernel covers."""
+    from . import pallas_riccati
+
+    return (
+        platform == "gpu"
+        and dtype == jnp.float32
+        and len(batch_shape) == 1
+        and batch_shape[0] % pallas_riccati.BLOCK == 0
+        and pallas_riccati.covers(nx, nu, nc0, nth)
+    )
+
+
 def _make_solve_and_gains(assume_explicit: bool, unroll: int = 1,
-                          bf16_prop: bool = False, spd_lanes: bool = False,
-                          stage_fused: bool = False):
+                          bf16_prop: bool = False):
     def scan_path(problem: LQRProblem, mudyn, mueq):
         factors = backward(problem, mudyn, mueq, assume_explicit,
-                           unroll=unroll, bf16_prop=bf16_prop,
-                           spd_lanes=spd_lanes, stage_fused=stage_fused)
-        xs, us, vs, lams = forward(factors, unroll=unroll,
-                                   stage_fused=stage_fused)
+                           unroll=unroll, bf16_prop=bf16_prop)
+        xs, us, vs, lams = forward(factors, unroll=unroll)
         gains = {k: getattr(factors, k) for k in _GAIN_FIELDS}
         return xs, us, vs, lams, gains
 
@@ -780,14 +547,10 @@ def _make_solve_and_gains(assume_explicit: bool, unroll: int = 1,
         )
 
         kn = probs_b.knots
-        eligible = (
-            jax.default_backend() == "tpu"
-            and kn.Q.dtype == jnp.float32
-            and axis_size % pallas_riccati.LANES == 0
-            and kn.Q.ndim == 4  # exactly one batch axis (no nested vmap)
-            and pallas_riccati.available(probs_b)
-        )
-        if eligible:
+        if use_fused_kernel(
+            jax.default_backend(), kn.Q.dtype, kn.Q.shape[:-3],
+            kn.nx, kn.nu, probs_b.nc0, kn.nth,
+        ):
             out = pallas_riccati.solve(
                 probs_b, mudyn_b, mueq_b, return_gains=True,
                 assume_explicit=assume_explicit,
@@ -804,12 +567,10 @@ _SOLVE_AND_GAINS = {}
 
 
 def _get_solve_and_gains(assume_explicit: bool, unroll: int,
-                         bf16_prop: bool, spd_lanes: bool,
-                         stage_fused: bool = False):
+                         bf16_prop: bool):
     # memoized per option tuple: custom_vmap objects must be built once at
     # module scope semantics (rebuilding per call would retrace)
-    key = (bool(assume_explicit), int(unroll), bool(bf16_prop),
-           bool(spd_lanes), bool(stage_fused))
+    key = (bool(assume_explicit), int(unroll), bool(bf16_prop))
     fn = _SOLVE_AND_GAINS.get(key)
     if fn is None:
         fn = _SOLVE_AND_GAINS[key] = _make_solve_and_gains(*key)
@@ -818,30 +579,28 @@ def _get_solve_and_gains(assume_explicit: bool, unroll: int,
 
 def solve_and_gains(problem: LQRProblem, mudyn, mueq,
                     assume_explicit: bool = True, unroll: int = 1,
-                    bf16_prop: bool = False, spd_lanes: bool = False,
-                    stage_fused: bool = False):
-    """Solve + per-stage gains, with a TPU fused-kernel fast path under vmap.
+                    bf16_prop: bool = False):
+    """Solve + per-stage gains, with a fused-kernel path under vmap.
 
     Unbatched, this is ``backward`` + ``forward`` (the XLA scan path). Under
-    ``vmap`` — the batched-MPC execution model — the whole batch is
-    dispatched to the fused Pallas kernel (``pallas_riccati``) when
-    eligible: TPU backend, fp32, batch a multiple of 128, small dims, no
-    θ-block. This is the mechanism that lets ``jax.vmap(proxddp.solve)``
-    hit the fused kernel without the solver knowing about batching (13×
-    over the vmapped scan at the SE(2) bench shape). ``mudyn``/``mueq`` may
-    be traced and, under vmap, per-element (each scenario's BCL μ-schedule
-    evolves independently). ``assume_explicit`` selects the E = −I fast
-    path; with ``False`` the kernel inverts the stage E-blocks (manifold
-    difference-chart Jacobians).
+    ``vmap`` — the batched-MPC execution model — the whole batch goes to the
+    fused Triton kernel (``pallas_riccati``) when :func:`use_fused_kernel`
+    says so: GPU, fp32, batch a multiple of the kernel's block, small dims,
+    no θ-block. This is the mechanism that lets ``jax.vmap(proxddp.solve)``
+    reach the fused kernel without the solver knowing about batching.
+    ``mudyn``/``mueq`` may be traced and, under vmap, per-element (each
+    scenario's BCL μ-schedule evolves independently). ``assume_explicit``
+    selects the E = −I fast path; with ``False`` the kernel inverts the
+    stage E-blocks (manifold difference-chart Jacobians).
 
-    ``unroll`` unrolls k stages per scan step on the XLA path (amortizes
-    per-step launch overhead at medium dims); ``bf16_prop`` runs the
-    value-propagation GEMMs in bf16 with fp32 accumulation (the KKT core
-    stays fp32). Both are no-ops on the fused-Pallas dispatch.
+    ``unroll`` unrolls k stages per scan step on the XLA path;
+    ``bf16_prop`` runs the value-propagation GEMMs in bf16 with fp32
+    accumulation (the KKT core stays fp32). Both are no-ops on the fused
+    kernel.
     """
-    return _get_solve_and_gains(
-        assume_explicit, unroll, bf16_prop, spd_lanes, stage_fused
-    )(problem, mudyn, mueq)
+    return _get_solve_and_gains(assume_explicit, unroll, bf16_prop)(
+        problem, mudyn, mueq
+    )
 
 
 def solve_refined(
@@ -897,8 +656,7 @@ def solve_guarded(problem: LQRProblem, mudyn, mueq,
     back (``lax.cond``) to the dense-KKT LU factorization
     (:func:`lqr_problem.dense_solve`), which handles the indefinite class,
     mirroring the associative solver's runtime μ-floor guard.  This is the
-    recommended standalone entry point for arbitrary LQ problems
-    (round-4 VERDICT item 5).
+    recommended standalone entry point for arbitrary LQ problems.
 
     Caveat: under ``vmap``, ``lax.cond`` lowers to ``select`` and the
     dense branch executes for the whole batch — keep the raw

@@ -3,9 +3,8 @@
 Performance core: inside the Riccati `lax.scan`, per-stage factorizations act
 on tiny matrices (nx, nu ≤ ~6 for the headline MPC workloads). LAPACK-style
 ``cho_factor``/``lu`` primitives launch several kernels per call and
-serialize badly inside a scan on TPU; closed-form adjugate inverses are pure
-elementwise arithmetic that XLA fuses into the surrounding step — measured
-~5-10× faster on the batched SE(2)-car benchmark.
+serialize inside a scan; closed-form adjugate inverses are pure elementwise
+arithmetic that XLA fuses into the surrounding step.
 
 Dispatch is on the *static* trailing dimension: n ≤ 4 → closed form,
 otherwise fall back to Cholesky/LU. All matrices here are either SPD (the
@@ -159,9 +158,8 @@ def _tri_solve_upper_t(L, B):
 
 # Above this size, fall back to LAPACK-style primitives; below it (and
 # above _CLOSED_FORM_MAX) use the recursive block algorithms, whose heavy
-# ops are batched GEMMs that XLA maps onto the MXU — unlike
-# ``cho_factor``, whose blocked while-loop serializes catastrophically
-# inside a ``lax.scan`` on TPU (measured ~7× on the nx=36 Riccati scan).
+# ops are batched GEMMs — unlike ``cho_factor``, whose blocked while-loop
+# serializes inside a ``lax.scan``.
 _BLOCKED_MAX = 64
 
 
@@ -231,9 +229,9 @@ def spd_block_inv(M, newton_iters: int = 1):
     matrix ``I + μ_dyn·P̃`` qualifies: eigs lie in [1, 1+μλmax(P)], so its
     condition number IMPROVES as μ shrinks — the opposite of the 1/μ-scaled
     reduced-KKT ``R̂ + D'D/μ_eq`` blocks, which must keep Cholesky (the
-    CLAUDE.md adjugate prohibition is about those). Measured motivation:
-    at nx=36 the recursive-Cholesky solve is ~53% of the Riccati stage
-    time on v5e (deep recursion of tiny ops); this inverse is GEMM-bound.
+    CLAUDE.md adjugate prohibition is about those). Motivation: the
+    recursive-Cholesky solve is a deep recursion of tiny ops; this inverse
+    is GEMM-bound.
     """
     n = M.shape[-1]
 

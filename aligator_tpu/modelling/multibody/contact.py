@@ -163,8 +163,8 @@ def _cfd_internals(
     system instead of autodiff through the Cholesky recursion, which is
     measurably better conditioned (the ur10_ballistic OCP converges with
     implicit tangents and stalls without them).  The analytic custom-JVP
-    path (world contacts) keeps the plain closure — faster on TPU and its
-    rules never differentiate through here.
+    path (world contacts) keeps the plain closure — cheaper, and its rules
+    never differentiate through here.
 
     ``contact_frames2``: optional per-contact second frame (int, or None
     for a world contact).  An entry with a second frame is a body-body
@@ -235,15 +235,12 @@ def _cfd_internals(
     gamma = gamma * act
 
     # merged multi-RHS mass solve [Jc', free] — one factorization and one
-    # triangular traversal (the lanes-SPD dispatch was measured SLOWER here:
-    # r = nc+1 ≈ 13 columns is too narrow to amortize the kernel's
-    # refactorization — cfd_forward 2.04 → 3.07 ms at Talos batch 16; the
-    # dispatch stays on the 3nv-column derivative solves where it wins)
+    # triangular traversal
     solve_M = smallmat.spd_solver(M)
     if diff_solves:
-        from ...gar.riccati import spd_solve_dispatch
+        from ...gar.riccati import spd_solve
 
-        Y = spd_solve_dispatch(
+        Y = spd_solve(
             M, jnp.concatenate([Jc.T, free[:, None]], axis=1)
         )
     else:
@@ -269,9 +266,9 @@ def _cfd_internals(
     rhs = Jc @ a_free + gamma
     solve_G = smallmat.spd_solver(G)
     if diff_solves:
-        from ...gar.riccati import spd_solve_dispatch
+        from ...gar.riccati import spd_solve
 
-        lam = spd_solve_dispatch(G, rhs)
+        lam = spd_solve(G, rhs)
     else:
         lam = solve_G(rhs)
 

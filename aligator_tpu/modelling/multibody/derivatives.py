@@ -1,6 +1,6 @@
 """Analytic rigid-body dynamics derivatives (world-frame einsum form).
 
-TPU-native counterpart of Pinocchio's analytic derivative algorithms that
+Accelerator-native counterpart of Pinocchio's analytic derivative algorithms that
 the reference rides for its hot path: ``pinocchio::computeABADerivatives``
 (used by ``modelling/dynamics/multibody-free-fwd.hxx:66``) and
 ``computeConstraintDynamicsDerivatives``
@@ -367,9 +367,8 @@ def _fd_rows_std(model, q, v, a, lam, active, prefs,
                  contact_frames, contact_dims, kp, kd, has_prefs):
     """Reference jnp implementation of the derivative-rows pass: tensor
     pass + per-contact acceleration rows + Jᵀλ transport.  Returns
-    ``(ra1_q, ra1_v, r2_q, r2_v)``.  Per-instance (unbatched) — the
-    batched path dispatches to the fused lanes kernel
-    (``pallas_tensors.py``); this stays the oracle + fallback."""
+    ``(ra1_q, ra1_v, r2_q, r2_v)``.  Per-instance (unbatched); batched
+    callers vmap it."""
     from . import contact as _contact
 
     dtype = q.dtype
@@ -415,96 +414,6 @@ def _fd_rows_std(model, q, v, a, lam, active, prefs,
     )
 
 
-def _prep_lane_inputs(model, q, v, a, contact_frames):
-    """Per-instance primal pieces consumed by the lanes kernel (cheap
-    standard-layout precomputation; mirrors the head of
-    :func:`rnea_tensors`)."""
-    dt = q.dtype
-    kin = rbd.kinematics(model, q, v)
-    top, dj, D_np, pb_np = _dof_tables(model)
-    A = kin["A"]
-    S = kin["Phi"]
-    Vb = kin["V"]
-    R, p = kin["R"], kin["p"]
-    pb_safe = np.maximum(pb_np, 0)
-    has_par = jnp.asarray((pb_np >= 0).astype(np.float64), dt)[:, None]
-    Vpar = Vb[pb_safe] * has_par
-    Vdof = Vb[dj]
-    Ca = (A * a) @ S
-    Capar = Ca[pb_safe] * has_par
-    beta = motion_cross(Vdof, S * v[:, None])
-    a_grav = jnp.concatenate([-model.gravity.astype(dt), jnp.zeros(3, dt)])
-    Accb = Ca + A @ beta + a_grav
-    m_w, c_w, I_w = _world_inertia(model, R, p, dt)
-    I6 = spatial_inertia6(m_w, c_w, I_w)
-    h = inertia_apply(m_w, c_w, I_w, Vb)
-    y = inertia_apply(m_w, c_w, I_w, Accb)
-    pcs = jnp.stack(
-        [
-            rbd.frame_placement(model, q, f, kin=kin)[1]
-            for f in contact_frames
-        ]
-    )
-    return S, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6, pcs
-
-
-@functools.lru_cache(maxsize=None)
-def _fd_rows_kernel_cv(contact_bodies, contact_dims, kp, kd, has_prefs,
-                       interpret=False):
-    """CONSTS-FREE custom_vmap wrapper around the fused lanes kernel.
-
-    Design constraint (measured the hard way): a ``custom_vmap`` whose
-    traced jaxpr captures array constants trips JAX's
-    ``consts_batched`` assertion when the call sits inside a vmapped
-    ``lax.while_loop`` (the solver's execution model) — so the topology
-    masks are threaded through as ARGUMENTS (left unbatched by the rule)
-    and the prep arrays are computed by the caller.  The rule flattens
-    arbitrary vmap nesting into one leading batch axis by self-recursion
-    (the `_spd_solve_flat` pattern, which is proven in this position)."""
-    from . import pallas_tensors
-
-    n_arr = 15  # batched per-instance arrays; masks follow
-
-    @jax.custom_batching.custom_vmap
-    def fn(*args):
-        arrs = args[:n_arr]
-        A2, D2, Dt2 = args[n_arr:]
-        (S, v, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6, lam, pcs,
-         active, prefs) = arrs
-        return pallas_tensors.fd_rows_lanes(
-            S, v, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6,
-            lam, pcs, active, prefs, A2, D2, Dt2,
-            contact_bodies=contact_bodies, contact_dims=contact_dims,
-            kd=kd, kp=kp, has_prefs=has_prefs, interpret=interpret,
-        )
-
-    @fn.def_vmap
-    def _rule(axis_size, in_batched, *args):
-        arrs, masks = args[:n_arr], args[n_arr:]
-        arrs_b = tuple(
-            a
-            if b
-            else jnp.broadcast_to(a, (axis_size,) + jnp.shape(a))
-            for a, b in zip(arrs, in_batched[:n_arr])
-        )
-        flat = tuple(a.reshape((-1,) + a.shape[2:]) for a in arrs_b)
-        # the topology masks are batch-INVARIANT by construction (the
-        # contact configuration is a static argument of this dispatcher,
-        # so every batch element shares one robot); while_loop batching
-        # may still hand them to us broadcast — strip the spurious axis
-        masks = tuple(
-            m[0] if b else m
-            for m, b in zip(masks, in_batched[n_arr:])
-        )
-        out = fn(*flat, *masks)
-        out = tuple(
-            o.reshape((axis_size, -1) + o.shape[1:]) for o in out
-        )
-        return out, (True,) * 4
-
-    return fn
-
-
 @highest_precision
 def constrained_fd_tensors(
     model, q, v, tau, contact_frames, active,
@@ -523,10 +432,8 @@ def constrained_fd_tensors(
     ``computeConstraintDynamicsDerivatives``
     (``multibody-constraint-fwd.hxx:60``).
 
-    The derivative-rows pass dispatches to the fused batch-on-lanes Pallas
-    kernel under vmap batching (``pallas_tensors.py``, round-5 whole-body
-    lever); do not differentiate THROUGH this function — the solver
-    consumes it inside custom-JVP rules where no tangents flow."""
+    Do not differentiate THROUGH this function — the solver consumes it
+    inside custom-JVP rules where no tangents flow."""
     from . import contact as _contact
 
     dtype = q.dtype
@@ -542,44 +449,11 @@ def constrained_fd_tensors(
         if p_refs is not None
         else jnp.zeros((len(contact_frames), 3), dtype)
     )
-    import os
-
-    force = os.environ.get("ALIGATOR_PT_FORCE") == "1"  # CPU test hook
-    use_kernel = force or (
-        jax.default_backend() == "tpu" and dtype == jnp.float32
+    ra1_q, ra1_v, r2_q, r2_v = _fd_rows_std(
+        model, q, v, out["a"], out["lam"], active.astype(dtype),
+        prefs, tuple(contact_frames), tuple(contact_dims),
+        float(kp), float(kd), p_refs is not None,
     )
-    if use_kernel:
-        top, dj, D_np2, pb_np2 = _dof_tables(model)
-        A_np = np.asarray(top["A"], np.float64)
-        prep = _prep_lane_inputs(model, q, v, out["a"], contact_frames)
-        S, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6, pcs = prep
-        fn = _fd_rows_kernel_cv(
-            tuple(model.frame_parents[f] for f in contact_frames),
-            tuple(contact_dims), float(kp), float(kd),
-            p_refs is not None, interpret=force,
-        )
-        # dummy leading flat-batch axis of 1: the dispatch's flatten rule
-        # folds every vmap level into it
-        arrs = tuple(
-            x[None]
-            for x in (
-                S, v, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6,
-                out["lam"], pcs, active.astype(dtype), prefs,
-            )
-        )
-        masks = (
-            jnp.asarray(A_np, dtype),
-            jnp.asarray(D_np2, dtype),
-            jnp.asarray(np.asarray(D_np2).T, dtype),
-        )
-        rows = fn(*arrs, *masks)
-        ra1_q, ra1_v, r2_q, r2_v = (o[0] for o in rows)
-    else:
-        ra1_q, ra1_v, r2_q, r2_v = _fd_rows_std(
-            model, q, v, out["a"], out["lam"], active.astype(dtype),
-            prefs, tuple(contact_frames), tuple(contact_dims),
-            float(kp), float(kd), p_refs is not None,
-        )
     out["ra1_q"] = ra1_q
     out["ra1_v"] = ra1_v
     out["r2_q"] = r2_q
@@ -608,17 +482,15 @@ def constrained_fd_derivatives(
 
     # ONE joint KKT solve for all 3nv tangent directions (q, v, τ):
     # the three per-direction solves share the M and G factorizations and
-    # one multi-RHS traversal — and, batched (scenario × stage vmaps), the
-    # joint solves ride the batch-on-lanes Pallas kernel through the
-    # nesting-flattening dispatch (round-5 whole-body derivative lever).
-    from ...gar.riccati import spd_solve_dispatch as _spd_solve_dispatch
+    # one multi-RHS traversal.
+    from ...gar.riccati import spd_solve
 
     R1 = jnp.concatenate([-out["ra1_q"], -out["ra1_v"], eye], axis=1)
     R2 = jnp.concatenate(
         [-out["r2_q"], -out["r2_v"], jnp.zeros((nc, nv), dt)], axis=1
     )
-    X = _spd_solve_dispatch(out["M"], R1)
-    dlam = _spd_solve_dispatch(out["G"], Jc @ X - R2)
+    X = spd_solve(out["M"], R1)
+    dlam = spd_solve(out["G"], Jc @ X - R2)
     D = X - MinvJt @ dlam
     da_dq, da_dv, da_dt = D[:, :nv], D[:, nv : 2 * nv], D[:, 2 * nv :]
     dl_dq, dl_dv, dl_dt = (

@@ -156,7 +156,7 @@ def _min_norm_triangle(p0, p1, p2, eps=1e-12):
 
 def convex_distance(support_a, support_b, x_init=None, iters=24, eps=1e-12):
     """Distance between convex sets A, B given their support maps — the
-    TPU-friendly GJK replacement: FIXED iteration count, no data-dependent
+    accelerator-friendly GJK replacement: FIXED iteration count, no data-dependent
     branches, fully differentiable (implicit subgradients through the
     support argmax/sign).
 

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from .model import FREEFLYER, REVOLUTE, make_model, frame_placement
 
 # plain tuples (NOT jnp arrays): module import must not initialize a jax
-# backend — examples select cpu/tpu programmatically after import.
+# backend (JAX_PLATFORMS=cpu selects the CPU; the default is the GPU).
 X = (1.0, 0.0, 0.0)
 Y = (0.0, 1.0, 0.0)
 Z = (0.0, 0.0, 1.0)

@@ -1,13 +1,13 @@
 """Rigid-body model and algorithms in JAX (engine v2, world-frame einsum form).
 
-TPU-native replacement for the Pinocchio layer the reference depends on
+Accelerator-native replacement for the Pinocchio layer the reference depends on
 (``modelling/dynamics/multibody-free-fwd.hpp:25`` uses ABA;
 ``modelling/multibody/*`` use frame kinematics/Jacobians): a kinematic tree
 with revolute/prismatic/free-flyer joints, forward kinematics, recursive
 Newton-Euler inverse dynamics (RNEA), mass matrix (CRBA-equivalent), and
 forward dynamics.
 
-Design notes (tpu-first; this is v2 — v1 unrolled Python loops per joint,
+Design notes (accelerator-first; this is v2 — v1 unrolled Python loops per joint,
 which traced O(n_joints) graphs and took ~10 min to compile at quadruped
 scale; v2 traces O(1) graphs):
 
@@ -34,12 +34,12 @@ scale; v2 traces O(1) graphs):
     - joint torques (RNEA)      ``tau = sum(Phi * (A^T @ f), axis=1)``
     - mass matrix (CRBA role)   ``M = sum_b (A_b Phi)^T I_b (A_b Phi)``
 
-  These are dense (nbody x nv x 6) contractions — exactly the shape the MXU
-  likes, they batch perfectly under ``vmap``, and autodiff through them is
-  compact (no per-joint graph unrolling).
+  These are dense (nbody x nv x 6) contractions — batched matrix products
+  that batch perfectly under ``vmap``, and autodiff through them is compact
+  (no per-joint graph unrolling).
 * Forward dynamics stays dense-Cholesky on M: at robot sizes (nv <= ~40)
-  an O(nv^3) batched Cholesky on the MXU beats a latency-bound serial O(n)
-  articulated-body recursion on TPU by a wide margin.
+  an O(nv^3) batched Cholesky is a few wide batched ops, where a serial
+  O(n) articulated-body recursion would be a chain of tiny dependent ones.
 * Convention: spatial vectors are 6-vectors (linear, angular); free-flyer
   velocities are body-frame coordinates, matching Pinocchio's layout.
 
@@ -554,10 +554,10 @@ def aba(model: RobotModel, q, v, tau, ext_forces: Optional[jax.Array] = None):
     """Forward dynamics q̈ = M(q)⁻¹(τ − b(q,v)).
 
     Role of Pinocchio's ABA in the reference (``multibody-free-fwd.hpp:25``).
-    Dense mass-matrix Cholesky: at nv ≤ ~40 a batched O(nv³) Cholesky rides
-    the MXU, while a serial O(n) articulated-body sweep would be a chain of
-    ~nj tiny dependent ops — latency-bound on TPU. M and b share one
-    kinematics pass.
+    Dense mass-matrix Cholesky: at nv ≤ ~40 a batched O(nv³) Cholesky is a
+    few wide batched ops, while a serial O(n) articulated-body sweep would
+    be a chain of ~nj tiny dependent ops. M and b share one kinematics
+    pass.
 
     Derivatives are analytic (``derivatives.py`` custom JVP — the
     ``computeABADerivatives`` role, reference
@@ -583,7 +583,7 @@ def _aba_impl(model: RobotModel, q, v, tau,
     M = mass_matrix(model, q, kin=kin)
 
     # recursive block Cholesky (gar/smallmat.py): batched-GEMM factor with
-    # no while-loop primitives — ~2.7x cho_factor inside scans on TPU
+    # no while-loop primitives
     from ...gar import smallmat
 
     return smallmat.solve_spd(M, tau - b)

@@ -1,8 +1,8 @@
 """Device-mesh helpers for multi-chip scaling.
 
 The reference's parallelism is shared-memory OpenMP (SURVEY.md §5.8); the
-TPU-native replacement is SPMD over a `jax.sharding.Mesh` with two natural
-axes:
+replacement here is SPMD over a `jax.sharding.Mesh` with two natural axes
+(the cards of one host are joined all to all, so the meshes are flat):
 
 * ``batch`` — embarrassingly parallel scenarios (MPC instances); sharded
   data-parallel, no collectives in the solve itself.
@@ -39,43 +39,6 @@ def shard_batch(mesh: Mesh, tree, axis_name: str = "batch"):
     return jax.device_put(tree, sharding)
 
 
-def make_hybrid_mesh(
-    n_slices: Optional[int] = None,
-    axis_names=("dcn", "batch"),
-) -> Mesh:
-    """Two-level mesh for multi-slice TPU pods: the outer axis spans slices
-    (connected over DCN — data-center network), the inner axis the chips of
-    a slice (connected over ICI).
-
-    Layout rule (the scaling-book recipe): shard ONLY embarrassingly
-    parallel work — the MPC scenario batch — over the ``dcn`` axis (zero
-    collectives cross-slice), and keep every collective-bearing axis
-    (parallel-in-time legs, condensed-system reductions) inside a slice so
-    it rides ICI. ``batched_solve(axis_name=('dcn', 'batch'))`` shards the
-    scenario batch over both axes at once.
-
-    Uses ``jax.experimental.mesh_utils.create_hybrid_device_mesh`` when
-    slice topology is discoverable; falls back to a flat reshape (e.g. on
-    the CPU-virtual test mesh, where DCN is simulated).
-    """
-    devices = jax.devices()
-    n = len(devices)
-    if n_slices is None:
-        # group by slice if the platform exposes it; else one "slice"
-        slice_ids = {getattr(d, "slice_index", 0) for d in devices}
-        n_slices = max(len(slice_ids), 1)
-    per_slice = n // n_slices
-    try:
-        from jax.experimental import mesh_utils
-
-        arr = mesh_utils.create_hybrid_device_mesh(
-            (per_slice,), (n_slices,), devices=devices
-        ).reshape(n_slices, per_slice)
-    except Exception:
-        arr = np.array(devices).reshape(n_slices, per_slice)
-    return Mesh(arr, axis_names=axis_names)
-
-
 def batched_solve(
     solve_one: Callable,
     batch_args,
@@ -83,14 +46,23 @@ def batched_solve(
     axis_name="batch",
 ):
     """Shard ``batch_args`` (leading batch axis) over the mesh and run
-    ``vmap(solve_one)`` under jit with explicit shardings.
+    ``vmap(solve_one)`` on each device's shard.
 
-    Returns the (sharded) results pytree. The per-device work is identical,
-    so scaling across chips is linear in the absence of host bottlenecks.
+    The per-device program is ``shard_map`` of the vmapped solve, so each
+    device runs exactly the single-device batched program on its local
+    shard — including any fused kernel the batched solve dispatches to,
+    which the SPMD partitioner could not split. Returns the results pytree,
+    sharded along the batch axis. The scenarios are independent, so there
+    are no collectives.
     """
     if mesh is None:
         mesh = make_mesh()
-    sharding = NamedSharding(mesh, P(axis_name))
+    spec = P(axis_name)
+    sharding = NamedSharding(mesh, spec)
     batch_args = jax.device_put(batch_args, sharding)
-    fn = jax.jit(jax.vmap(solve_one), in_shardings=(sharding,), out_shardings=sharding)
+    fn = jax.jit(
+        jax.shard_map(jax.vmap(solve_one), mesh=mesh, in_specs=spec,
+                      out_specs=spec, check_vma=False),
+        out_shardings=sharding,
+    )
     return fn(batch_args)

@@ -25,7 +25,7 @@ from jax import lax
 from .._precision import highest_precision
 from .._pytree import pytree_dataclass, replace
 from ..core import problem as problem_mod
-from ..gar.riccati import _spd_solve_dispatch
+from ..gar import smallmat
 from ..core.problem import TrajOptProblem
 from ..utils import logger as logger_mod
 
@@ -159,12 +159,9 @@ def solve(
             Qxu = Lxu + FxV @ Fu_t
             Quu = Luu + FuV @ Fu_t + preg * jnp.eye(nu, dtype=dtype)
             # joint feedforward+feedback solve against ONE SPD multi-RHS
-            # traversal, routed through the batch-on-lanes Pallas kernel
-            # under an outer vmap (riccati._spd_solve_dispatch): unrolled
-            # Cholesky in-scan instead of LAPACK cho_factor/cho_solve,
-            # per the smallmat convention — and the batched-MPC execution
-            # model rides the same kernel that ProxDDP's reduced KKT does
-            sol = _spd_solve_dispatch(
+            # traversal: unrolled Cholesky in-scan instead of LAPACK
+            # cho_factor/cho_solve, per the smallmat convention
+            sol = smallmat.solve_spd(
                 0.5 * (Quu + Quu.T),
                 jnp.concatenate([Qu[:, None], Qxu.T], axis=1),
             )

@@ -1,6 +1,6 @@
 """ProxDDP: proximal augmented-Lagrangian trajectory optimization.
 
-TPU-native re-design of ``SolverProxDDPTpl`` (reference
+Accelerator-native re-design of ``SolverProxDDPTpl`` (reference
 ``include/aligator/solvers/proxddp/solver-proxddp.hxx:458``). The reference's
 nested control flow (outer BCL loop → inner Newton loop → linesearch) is
 flattened into ONE ``lax.while_loop`` whose body performs a single Newton
@@ -106,8 +106,8 @@ class ProxDDPConfig:
     # a fully exact Newton step.
     hessian_approx: str = "gauss_newton"
     dphi_thresh: float = 1e-13
-    # rollout type: 'linear' (TPU-friendly, parallel-solver compatible) or
-    # 'nonlinear' (reference default)
+    # rollout type: 'linear' (accelerator-friendly, parallel-solver
+    # compatible) or 'nonlinear' (reference default)
     rollout: str = "linear"
     # Newton iterations for implicit dynamics inside the nonlinear rollout
     # (reference SolverProxDDP::rollout_max_iters, default 1 —
@@ -115,40 +115,22 @@ class ProxDDPConfig:
     # Raise for stiff implicit integrators (e.g. IntegratorMidpoint).
     rollout_max_iters: int = 1
     # LQ subproblem solver (reference LQSolverChoice): 'serial' (scan, with
-    # automatic dispatch to the fused Pallas TPU kernel under an outer vmap
-    # when eligible), 'serial_scan' (force the XLA scan path), 'parallel'
-    # (parallel-in-time leg condensation; requires linear rollout;
-    # non-divisible horizons use the balanced get_work split), or
-    # 'associative' (O(log N)-depth
-    # associative-scan Riccati — latency-optimal for one long horizon;
-    # explicit dynamics only; fp32 requires mu >= ~1e-3: the penalty-folded
-    # element algebra stops contracting below that — see gar/associative.py)
+    # automatic dispatch to the fused Triton kernel under an outer vmap
+    # when eligible, gar.riccati.use_fused_kernel), 'serial_scan' (force
+    # the XLA scan path), 'parallel' (parallel-in-time leg condensation;
+    # requires linear rollout; non-divisible horizons use the balanced
+    # get_work split), or 'associative' (O(log N)-depth associative-scan
+    # Riccati — latency-optimal for one long horizon; explicit dynamics
+    # only; fp32 requires mu >= ~1e-3: the penalty-folded element algebra
+    # stops contracting below that — see gar/associative.py)
     linear_solver: str = "serial"
-    # XLA-scan Riccati tuning (medium dims, nx > 8, where the fused Pallas
-    # kernel doesn't apply): unroll k stages per scan step (amortizes
-    # per-step launch/HBM round-trips). The bf16 value-propagation ablation
-    # lives on gar.riccati.backward/sweep (bf16_prop=) as a bench-only knob:
-    # it was measured +5% speed / 160x worse dual residual (round 3) and the
-    # precision policy keeps KKT-adjacent algebra in fp32, so it is
-    # deliberately NOT exposed on the production solver config.
+    # XLA-scan Riccati tuning: unroll k stages per scan step. The bf16
+    # value-propagation ablation lives on gar.riccati.backward/sweep
+    # (bf16_prop=) as a bench-only knob: it costs about two orders of
+    # magnitude of dual residual, and the precision policy keeps
+    # KKT-adjacent algebra in fp32, so it is deliberately NOT exposed on
+    # the production solver config.
     lq_scan_unroll: int = 1
-    # batch-on-lanes Pallas SPD solves inside the Riccati stage kernel
-    # (gar/pallas_spd.py): measured 1.84x on the nx=36 medium-dim sweep at
-    # batch 1024 (round-4 spike). None = auto (enabled when ndx >= 16 —
-    # medium dims where the fused small-dim kernel doesn't apply; the
-    # dispatch itself re-checks TPU/fp32/batch%128 eligibility at trace
-    # time and falls back to the XLA path otherwise).
-    lq_spd_lanes: Optional[bool] = None
-    # fused whole-stage batch-on-lanes Pallas kernel for the backward sweep
-    # (gar/pallas_stage.py): Schur solve + value GEMMs + reduced-KKT
-    # assembly + gains in ONE dispatch per stage (round-4 VERDICT item 3).
-    # Measured on v5e: humanoid dims (nx=36, batch 1024) 1.24x end-to-end
-    # (2,462 -> 3,052 solves/s); nx=56 regresses (0.86x) and is excluded
-    # by the eligibility ceiling. None = auto (enabled at medium dims,
-    # ndx >= 16; gar.pallas_stage.fused_stage_eligible re-checks
-    # TPU/fp32/batch%128/explicit/nx<=44 at trace time and the dispatch
-    # falls back to the XLA scan otherwise).
-    lq_stage_fused: Optional[bool] = None
     # runtime μ floor for 'associative': when min(mudyn, mueq) drops below
     # this, the Newton step falls back to the serial sweep for that solve
     # (lax.cond) instead of silently entering the scan's divergence region.
@@ -762,16 +744,6 @@ def solve(
 
         mudyn = cfg.dyn_al_scale * st.mu
         lq = _assemble_lq(problem, cfg, data, m, Lxs, Lus, st.preg, st.mu)
-        # batch-on-lanes SPD dispatch: auto-on at medium dims (the fused
-        # small-dim Pallas kernel covers nx <= 8; eligibility is re-checked
-        # inside the dispatch, so this is a trace-time hint, not a promise)
-        spd_lanes = (
-            cfg.lq_spd_lanes if cfg.lq_spd_lanes is not None else ndx >= 16
-        )
-        stage_fused = (
-            bool(cfg.lq_stage_fused) if cfg.lq_stage_fused is not None
-            else ndx >= 16
-        )
         if cfg.linear_solver == "parallel":
             # parallel-in-time leg condensation (reference requires LINEAR
             # rollout with the parallel solver, solver-proxddp.hxx:169-181)
@@ -824,11 +796,10 @@ def solve(
             # serial solve through the custom_vmap dispatcher: unbatched it
             # is the same backward+forward scan; under an outer vmap (the
             # batched-MPC execution model) the whole batch goes to the fused
-            # Pallas TPU kernel when eligible (gar/pallas_riccati.py)
+            # Triton kernel when eligible (gar/pallas_riccati.py)
             dxs, dus_p, dvs_p, dlams, gains = riccati.solve_and_gains(
                 lq, mudyn, st.mu, assume_explicit,
-                unroll=cfg.lq_scan_unroll, spd_lanes=spd_lanes,
-                stage_fused=stage_fused,
+                unroll=cfg.lq_scan_unroll,
             )
             factors = riccati.RiccatiFactors(
                 **gains,
@@ -841,11 +812,10 @@ def solve(
         else:
             factors = riccati.backward(
                 lq, mudyn, st.mu, assume_explicit,
-                unroll=cfg.lq_scan_unroll, spd_lanes=spd_lanes,
-                stage_fused=stage_fused,
+                unroll=cfg.lq_scan_unroll,
             )
             dxs, dus_p, dvs_p, dlams = riccati.forward(
-                factors, unroll=cfg.lq_scan_unroll, stage_fused=stage_fused
+                factors, unroll=cfg.lq_scan_unroll
             )
             gain_K, gain_kff = factors.K, factors.kff
         dus = dus_p[:N]

@@ -10,7 +10,7 @@ family ``θ ↦ problem(θ)``, attach the parametric blocks of the final LQ
 subproblem and harvest ``th_grad = dV/dθ`` and ``th_hess = d²V/dθ²`` into
 :class:`ProxDDPResults`.
 
-TPU-native design: the problem family is a pure pytree-returning function
+Accelerator-native design: the problem family is a pure pytree-returning function
 (θ may enter cost targets/weights, constraint offsets, dynamics parameters,
 or the initial state); the θ cross-blocks are computed by ``jax.jacfwd``
 of the stacked Lagrangian gradients — nth forward tangents through the

@@ -3,7 +3,7 @@
 The compat-layer role (reference layer 5,
 ``include/aligator/compat/crocoddyl/problem-wrap.hpp:14``
 ``ActionModelWrapperTpl``): the reference can ingest externally defined
-problems; this module gives the TPU framework the same *capability* through
+problems; this module gives this framework the same *capability* through
 a neutral serialized format instead of a C++ ABI bridge — a single ``.npz``
 archive holding a JSON manifest plus the referenced arrays.  Any producer
 (this framework, an exporter script running under the reference's own

@@ -2,7 +2,7 @@
 ``examples/convert_to_nlp.py``, which bridges aligator problems to
 proxsuite-nlp).
 
-The TPU-native analog: flatten the trajectory decision variables into one
+The accelerator-native analog: flatten the trajectory decision variables into one
 vector z = [dx₀, u₀, dx₁, u₁, …, dx_N] of *tangent-space* coordinates around
 a base trajectory, and expose jitted objective / constraint callables with
 exact JAX derivatives. The scipy bridge (:func:`solve_scipy`) turns any

@@ -8,7 +8,6 @@ Usage: python bench_lqr.py [batch]
 
 import json
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +26,7 @@ def make_dense_lqr(nx=56, nu=22, nsteps=100, dtype=jnp.float32):
     import numpy as np
 
     A = jax.random.normal(kA, (nx, nx), dtype) / jnp.sqrt(jnp.asarray(nx, dtype))
-    # spectral normalization on the host (no eig lowering on TPU)
+    # spectral normalization on the host
     rho = float(np.abs(np.linalg.eigvals(np.asarray(A, np.float64))).max())
     A = jnp.asarray(0.95 / rho, dtype) * A
     B = jax.random.normal(kB, (nx, nu), dtype) / jnp.sqrt(jnp.asarray(nu, dtype))
@@ -45,40 +44,40 @@ def make_dense_lqr(nx=56, nu=22, nsteps=100, dtype=jnp.float32):
     return core.make_problem(x0, stage, nsteps, term)
 
 
-def run_both(batch=256):
-    """ProxDDP-vs-FDDP solves/s at the reference lqr.cpp shape; returns a
-    dict (also folded into ``bench.py``'s single JSON line, VERDICT r2
-    item 8 — the reference compares both solvers in ``bench/lqr.cpp:23-57``)."""
-    dtype = jnp.float32
-    problem = make_dense_lqr(dtype=dtype)
-    nx = problem.x0.shape[0]
-    x0s = problem.x0 + 0.1 * jax.random.normal(
+def initial_states(batch, nx=56, dtype=jnp.float32):
+    return jnp.ones((nx,), dtype) + 0.1 * jax.random.normal(
         jax.random.PRNGKey(7), (batch, nx), dtype
     )
 
-    runs = {
-        "proxddp": lambda x0: solvers.solve(
+
+def solvers_one():
+    """``{solver: (problem, x0) -> results}`` with the reference budget."""
+    return {
+        "proxddp": lambda problem, x0: solvers.solve(
             replace(problem, x0=x0),
             solvers.ProxDDPConfig(
                 tol=1e-7, mu_init=1e-9, max_iters=2, rollout="linear"
             ),
-        ).us,
-        "fddp": lambda x0: solvers.fddp.solve(
+        ),
+        "fddp": lambda problem, x0: solvers.fddp.solve(
             replace(problem, x0=x0),
             solvers.FDDPConfig(tol=1e-7, max_iters=2),
-        ).us,
+        ),
     }
-    out = {}
-    for name, one in runs.items():
-        f = jax.jit(lambda xs: jax.vmap(one)(xs))
-        float(f(x0s).sum())  # compile + warm
-        ts = []
-        for i in range(1, 4):  # perturbed reps + host readback (bench.py)
-            t0 = time.perf_counter()
-            float(f(x0s + jnp.asarray(i * 1e-6, dtype)).sum())
-            ts.append(time.perf_counter() - t0)
-        out[name] = batch / min(ts)
-    return out
+
+
+def run_both(batch=256):
+    """ProxDDP-vs-FDDP solves/s at the reference lqr.cpp shape; returns a
+    dict (also folded into ``bench.py``'s single JSON line — the reference
+    compares both solvers in ``bench/lqr.cpp:23-57``)."""
+    from bench import fleet_fn, timed
+
+    problem = make_dense_lqr(dtype=jnp.float32)
+    x0s = initial_states(batch, problem.x0.shape[0])
+    return {
+        name: batch / timed(fleet_fn(problem, one), x0s, n_rep=3)[0]
+        for name, one in solvers_one().items()
+    }
 
 
 def main():

@@ -1,40 +1,26 @@
-"""Medium-dim (nx=36) Riccati ablation bench — VERDICT r2 item 3.
+"""Medium-dim (nx=36) Riccati ablation bench.
 
 The humanoid-dim LQ path (nx=36, nu=12, N=100 — the reference gar bench
-shape, ``bench/gar-riccati.cpp:18``) runs on the XLA scan, which round 2
-measured at ~2x off the VPU roofline. This harness measures the two
-prescribed ablations on real TPU hardware:
+shape, ``bench/gar-riccati.cpp:18``) runs on the XLA scan. This harness
+measures three ablations of it:
 
   (a) k-stage scan-body unrolling (``lax.scan(..., unroll=k)``) — amortizes
-      per-step launch/HBM round-trips across k stage kernels;
+      per-step launch overhead across k stage kernels;
   (b) bf16 value-propagation GEMMs (A'V, B'V, A'VA, B'VB, A'VB in bf16
       inputs, fp32 accumulation) with the KKT core kept fp32
-      (``_precision.py`` policy) — halves the HBM bytes of the widest
+      (``_precision.py`` policy) — halves the bytes of the widest
       per-stage operands;
-
-plus the round-3 addition that actually attacks the measured bottleneck —
-the serial scan is ~80× off the min-traffic HBM roofline, i.e. bound by
-the *sequential step count*, not operand bytes — namely:
-
-  (c) parallel-in-time leg condensation ON ONE CHIP (``gar/parallel.py``,
+  (c) parallel-in-time leg condensation on one device (``gar/parallel.py``,
       L legs): the stage recursion shortens N → N/L while the vmapped leg
       axis widens every batched op L×, trading sequential depth for
-      arithmetic width (the same trade the fused Pallas kernel makes at
-      small dims via lanes).
+      arithmetic width.
 
-Every variant carries a KKT-residual accuracy audit (fp32) and the HBM
-min-traffic roofline for context. Problems are JOINTLY convex
-(``gar.random_convex_problem``) — the class ProxDDP emits and the leg
-split's operating domain (see gar/parallel.py docstring).
+Every variant carries a KKT-residual accuracy audit (fp32). Problems are
+JOINTLY convex (``gar.random_convex_problem``) — the class ProxDDP emits
+and the leg split's operating domain (see gar/parallel.py docstring).
 
-Round-3 measured (v5e, batch 1024): u2/u4/u10 unrolling all SLOWER than
-the plain scan (358/278/275 vs 257 ms — unrolling enlarges the live set
-per step and spills); bf16 propagation 245 ms (+5%) but degrades the max
-dual residual 160× (0.089 → 14.3) — rejected per the _precision.py
-policy. Leg condensation is the keeper (see README).
-
-Timing discipline per CLAUDE.md: chained in-dispatch repetitions with a
-data-dependent perturbation per rep; one host readback per timed dispatch.
+Timing: chained in-dispatch repetitions with a data-dependent perturbation
+per rep; one host readback per timed dispatch.
 
 Usage: ``python bench_medium.py [batch]`` — prints one JSON line.
 """
@@ -45,7 +31,6 @@ import time
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 sys.path.insert(0, ".")
 
@@ -53,15 +38,6 @@ from aligator_tpu._pytree import replace  # noqa: E402
 from aligator_tpu.gar import lqr_problem as gar  # noqa: E402
 from aligator_tpu.gar import parallel as gar_parallel  # noqa: E402
 from aligator_tpu.gar import riccati  # noqa: E402
-
-V5E_HBM_PEAK_GBPS = 819.0
-
-
-def _tree_bytes(tree):
-    return sum(
-        int(np.prod(l.shape)) * l.dtype.itemsize for l in jax.tree.leaves(tree)
-    )
-
 
 def chained(solver, probs, batch, nx, m, reps=3):
     """min over reps of (one dispatch of m chained solves) / m, seconds."""
@@ -153,24 +129,18 @@ def main():
         xs, us, vs, lams = jax.jit(sv)(probe)
         errs[name] = float(jnp.max(kkt_err(probe, xs, us, vs, lams)))
 
-    # HBM min-traffic roofline: problem read once + solution written once
-    sol_shape = jax.eval_shape(solver(1, False), probs)
-    nbytes = _tree_bytes(probs) + _tree_bytes(sol_shape)
-    t_roofline = nbytes / (V5E_HBM_PEAK_GBPS * 1e9)
-
     best = min(times, key=times.get)
     out = {
         "metric": "medium_dim_lq_solves_per_sec",
         "value": round(batch / times[best], 1),
         "unit": "solves/s",
-        "vs_baseline": round(times["u1"] / times[best], 3),
+        "speedup_vs_u1": round(times["u1"] / times[best], 3),
         "batch": batch,
         "dims": f"nx={nx},nu={nu},nc={nc},N={N}",
         "best": best,
         "ms_per_batch": {k: round(v * 1e3, 2) for k, v in times.items()},
         "kkt_err": {k: float(f"{v:.3e}") for k, v in errs.items()},
-        "hbm_roofline_ms": round(t_roofline * 1e3, 2),
-        "frac_of_min_traffic_roofline": round(t_roofline / times[best], 3),
+        "device": jax.devices()[0].device_kind,
     }
     print(json.dumps(out))
 

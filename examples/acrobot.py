@@ -48,7 +48,6 @@ def create_acrobot_problem(nsteps=120, timestep=0.025, u_bound=12.0, dtype=jnp.f
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
 

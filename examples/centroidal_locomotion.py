@@ -6,7 +6,7 @@ cone constraints on every active contact, and a terminal CoM placement
 constraint. The reference builds type-heterogeneous stages (cone constraints
 attached only where a contact is active); here stages are a single stacked
 pytree and the schedule lives in stage-varying leaves (``ContactMap.active``
-plus the cone residuals' ``active`` gates) — the TPU-native idiom.
+plus the cone residuals' ``active`` gates) — the accelerator-native idiom.
 """
 
 import jax
@@ -140,7 +140,6 @@ def create_centroidal_problem(dtype=jnp.float64):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
     problem = create_centroidal_problem()

@@ -238,7 +238,6 @@ def create_problem(T_ds=10, T_ss=40, T_tail=50, dtype=jnp.float64):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
     problem, xs_init, com_final = create_problem()

@@ -60,6 +60,5 @@ if __name__ == "__main__":
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     main()

@@ -53,7 +53,6 @@ def create_double_pendulum_problem(
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
 

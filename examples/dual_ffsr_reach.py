@@ -1,5 +1,5 @@
 """Dual-arm free-floating space robot (FFSR) reach — the reference fork's
-vendored application workload, TPU-native.
+vendored application workload, accelerator-native.
 
 Counterpart of ``dual-FFSR_ProxDDP/main3.py``: a free-flyer satellite bus
 with two 7-DOF arms in zero gravity performs a coordinated reach with both
@@ -188,7 +188,6 @@ def create_ffsr_problem(
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 

@@ -85,7 +85,6 @@ def solve_cyclic(problem: LQRProblem, mu=1e-9):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 

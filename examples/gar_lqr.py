@@ -11,7 +11,6 @@ from aligator_tpu._pytree import replace
 from aligator_tpu.gar import parallel
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
     N, nx, nu, nc = 23, 4, 2, 1

@@ -81,7 +81,6 @@ def split_and_join(problem: LQRProblem, t0: int, mu: float = 1e-7):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 

@@ -1,7 +1,7 @@
 """Inverse LQR: recover cost weights from demonstrations by gradient
 descent THROUGH the solver.
 
-A TPU-native capability with no reference counterpart (README "beyond the
+A accelerator-native capability with no reference counterpart (README "beyond the
 reference"): ``gar.diff.solve`` exposes implicit-function-theorem gradients
 of the LQ solution w.r.t. every problem matrix, so inverse optimal control
 becomes plain ``jax.grad`` + optax. An "expert" trajectory is generated
@@ -113,6 +113,5 @@ def main():
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     main()

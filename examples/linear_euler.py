@@ -30,7 +30,6 @@ def create_linear_euler_problem(nsteps=20, timestep=0.001, dtype=jnp.float64):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
 

@@ -42,7 +42,6 @@ def make_lqr_problem(nsteps=100, dtype=jnp.float64, u_bound=None):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
     problem = make_lqr_problem(nsteps=20)

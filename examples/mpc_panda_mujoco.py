@@ -210,7 +210,6 @@ def run_closed_loop(
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     ncycles = int(sys.argv[1]) if len(sys.argv) > 1 else 120
     out = run_closed_loop(ncycles=ncycles, verbose=True)

@@ -11,7 +11,6 @@ from aligator_tpu._pytree import replace
 from examples.se2_car import create_se2_problem
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
     problem = create_se2_problem(nsteps=30, dtype=jnp.float64)

@@ -123,7 +123,6 @@ def create_panda_problem(
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
     from aligator_tpu.modelling.multibody import model as rbd

@@ -39,7 +39,6 @@ def make_problem(nsteps=100, dtype=jnp.float64):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
     problem = make_problem()

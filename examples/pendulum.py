@@ -48,7 +48,6 @@ def create_double_pendulum_problem(nsteps=100, timestep=0.02, dtype=jnp.float64)
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
 

@@ -116,7 +116,6 @@ def create_quadrotor_problem(nsteps=60, timestep=0.033, dtype=jnp.float64,
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
 

@@ -70,7 +70,6 @@ def create_se2_problem(nsteps: int = 50, dtype=jnp.float32, u_bound=None):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
 

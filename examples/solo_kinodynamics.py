@@ -151,7 +151,6 @@ def create_kinodynamics_problem(dtype=jnp.float64):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
     problem = create_kinodynamics_problem()

@@ -2,7 +2,7 @@
 workload, ``examples/talos_walk.py``: reduced Talos nq=29/nv=28/nu=22,
 6D sole contacts, double/single-support schedule, dt=0.01, N=220).
 
-TPU-first re-design of the stage structure: the reference builds 220
+Accelerator-first re-design of the stage structure: the reference builds 220
 heterogeneous C++ stages (per-phase dynamics objects + per-stage constraint
 stacks); here ONE stage pytree is replicated and the schedule lives entirely
 in stacked stage-parameter leaves —
@@ -158,7 +158,6 @@ def create_talos_walk_problem(
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
 

@@ -7,7 +7,7 @@ joint-velocity limits, with a terminal EQUALITY constraint on the payload
 position (``problem.addTerminalConstraint(create_term_constraint(...))``,
 ur10_ballistic.py:372-375).
 
-TPU-first re-design of the reference's model-switch structure:
+Accelerator-first re-design of the reference's model-switch structure:
 
 * the reference builds TWO dynamics objects — constrained
   (``MultibodyConstraintFwdDynamics`` with a 6D ``RigidConstraintModel``
@@ -166,7 +166,6 @@ def create_ur10_ballistic_problem(
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
 

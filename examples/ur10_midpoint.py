@@ -58,7 +58,6 @@ def create_ur10_midpoint_problem(nsteps=50, timestep=0.02, dtype=jnp.float64):
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from aligator_tpu import solvers
     from aligator_tpu.utils.rollout import rollout

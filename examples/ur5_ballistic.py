@@ -85,7 +85,6 @@ def create_ballistic_problem(
 
 
 if __name__ == "__main__":
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 

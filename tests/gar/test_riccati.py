@@ -86,7 +86,7 @@ def test_general_e_matrix():
 
 
 def test_batched_vmap():
-    """The solver vmaps over a batch of problems (the TPU scenario axis)."""
+    """The solver vmaps over a batch of problems (the scenario axis)."""
     keys = jax.random.split(jax.random.PRNGKey(7), 5)
     probs = jax.vmap(
         lambda k: gar.random_problem(k, 6, 4, 2, 2, dtype=jnp.float64)
@@ -179,7 +179,7 @@ def test_theta_gradient_hessian():
 
 def test_float32_accuracy():
     """fp32 path stays within the 1e-4 control-matching budget on a
-    well-conditioned problem (TPU default precision)."""
+    well-conditioned problem (default matmul precision)."""
     prob64 = make_problem(21, N=20, nx=6, nu=3, nc=2, dtype=jnp.float64)
     prob32 = jax.tree.map(
         lambda a: a.astype(jnp.float32)

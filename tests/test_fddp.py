@@ -126,3 +126,30 @@ def test_fddp_history_verbose_callback(capsys):
     out = capsys.readouterr().out
     assert "prim_err" in out and "dual_err" in out  # header printed
     assert out.count("\n") >= n  # one row per iteration
+
+
+def test_fddp_backward_medium_dims_batched():
+    """FDDP's backward pass at nx=36 (the humanoid dims) under vmap: its
+    joint feedforward/feedback SPD solve is ``smallmat.solve_spd`` on every
+    backend. On an LQR the first Newton step is exact, so two iterations
+    reach the ProxDDP optimum for every scenario."""
+    from aligator_tpu._pytree import replace
+    from bench_lqr import make_dense_lqr
+
+    problem = make_dense_lqr(nx=36, nu=12, nsteps=8, dtype=jnp.float64)
+    x0s = problem.x0 + 0.1 * jax.random.normal(
+        jax.random.PRNGKey(0), (3, 36), jnp.float64
+    )
+    r_f = jax.vmap(
+        lambda x0: fddp.solve(
+            replace(problem, x0=x0), fddp.FDDPConfig(tol=1e-8, max_iters=2)
+        )
+    )(x0s)
+    r_p = jax.vmap(
+        lambda x0: solvers.solve(
+            replace(problem, x0=x0),
+            solvers.ProxDDPConfig(tol=1e-9, max_iters=20),
+        )
+    )(x0s)
+    assert bool(jnp.all(r_f.conv))
+    assert float(jnp.max(jnp.abs(r_f.us - r_p.us))) < 1e-6

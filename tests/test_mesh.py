@@ -1,7 +1,7 @@
 """Mesh helpers on the virtual 8-device CPU mesh (conftest forces
-``--xla_force_host_platform_device_count=8``): flat batch sharding,
-simulated two-level (dcn × batch) hybrid mesh, and sharded-vs-local
-equality of ``batched_solve`` (reference §5.8 analog — the OpenMP layer)."""
+``--xla_force_host_platform_device_count=8``): flat batch sharding and
+sharded-vs-local equality of ``batched_solve`` (reference §5.8 analog —
+the OpenMP layer)."""
 
 import jax
 import jax.numpy as jnp
@@ -28,23 +28,6 @@ def test_batched_solve_matches_local():
     m = mesh_mod.make_mesh()
     assert m.devices.size == 8
     out = mesh_mod.batched_solve(one, g0s, mesh=m)
-    ref = jax.vmap(one)(g0s)
-    assert jnp.allclose(out, ref, atol=1e-10)
-
-
-def test_hybrid_mesh_two_level():
-    """Simulated 2 slices x 4 chips: the scenario batch shards over both
-    axes; results equal the local solve (no cross-slice collectives are
-    introduced by the solve itself)."""
-    m = mesh_mod.make_hybrid_mesh(n_slices=2)
-    assert m.axis_names == ("dcn", "batch")
-    assert m.devices.shape == (2, 4)
-
-    prob = gar.random_problem(jax.random.PRNGKey(2), 8, 3, 2, 0, dtype=jnp.float64)
-    B = 16
-    g0s = jax.random.normal(jax.random.PRNGKey(3), (B, 3), jnp.float64)
-    one = _solve_one(prob)
-    out = mesh_mod.batched_solve(one, g0s, mesh=m, axis_name=("dcn", "batch"))
     ref = jax.vmap(one)(g0s)
     assert jnp.allclose(out, ref, atol=1e-10)
 

@@ -1,10 +1,10 @@
 """Matmul-precision policy guards (see aligator_tpu/_precision.py).
 
-bf16 default-precision passes make ~23% of fp32 Riccati solves go
-non-finite on TPU (measured on v5e), and 'high' (3-pass) loses ~100× KKT
-accuracy inside the μ-scaled recursion. There is no TPU in CI, so these
-guard the configuration; the bench's ``frac_converged`` audit guards the
-numerics on hardware."""
+Reduced-precision f32 matmuls (TF32 on a GPU, bf16 passes elsewhere) can
+destroy positive definiteness inside the μ-scaled recursion, so the gar
+core pins 'highest' under a global 'high' default. These guard the
+configuration; chip_smoke.py's non-finite and converged fractions guard
+the numerics on the card."""
 
 import jax
 import jax.numpy as jnp

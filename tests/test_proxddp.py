@@ -332,7 +332,7 @@ def test_no_retrace_across_calls():
     """JAX analog of the reference's nomalloc guard (tests/nomalloc.cpp:7,
     CHECK_RUNTIME_MALLOC): the jitted solve must not re-trace or re-compile
     when called again with different VALUES of the same shapes — retraces
-    are the TPU equivalent of per-iteration heap allocation."""
+    are the accelerator equivalent of per-iteration heap allocation."""
     problem = make_lqr(nsteps=10, u_bound=0.4)
     cfg = solvers.ProxDDPConfig(tol=1e-6, max_iters=20)
 

@@ -273,3 +273,75 @@ def test_residual_analytic_jacobians():
         name = type(res).__name__
         assert float(jnp.abs(Jx1 - Jx0).max()) < 1e-9 * s, name
         assert float(jnp.abs(Ju1 - Ju0).max()) < 1e-12, name
+
+
+def _quadruped_batch(batch):
+    model = make_quadruped()
+    frames = tuple(model.frame_id(f"foot{i}") for i in range(4))
+    from aligator_tpu.modelling.multibody.quadruped import (
+        standing_configuration,
+    )
+
+    cspace = model.configuration_space()
+    q0 = standing_configuration(model)
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(11), 3)
+    dq = 0.05 * jax.random.normal(k1, (batch, model.nv))
+    qs = jax.vmap(lambda d: cspace.integrate(q0, d))(dq)
+    vs = 0.2 * jax.random.normal(k2, (batch, model.nv))
+    taus = 2.0 * jax.random.normal(k3, (batch, model.nv))
+    return model, frames, cspace, qs, vs, taus
+
+
+def test_fd_rows_std_batched_matches_per_instance():
+    """The derivative-rows pass under vmap (how the batched solver runs it)
+    equals per-instance calls."""
+    batch = 2
+    model, frames, _, qs, vs, taus = _quadruped_batch(batch)
+    active = jnp.ones((4,))
+    prefs = jnp.zeros((4, 3))
+
+    def rows(q, v, tau):
+        out = ct._cfd_internals(model, q, v, tau, frames, active, kd=1e-2,
+                                contact_dims=(3, 3, 3, 3))
+        return drv._fd_rows_std(
+            model, q, v, out["a"], out["lam"], active, prefs, frames,
+            (3, 3, 3, 3), 0.0, 1e-2, False,
+        )
+
+    batched = jax.jit(jax.vmap(rows))(qs, vs, taus)
+    rows_1 = jax.jit(rows)
+    for b in range(batch):
+        single = rows_1(qs[b], vs[b], taus[b])
+        for rb, r1 in zip(batched, single):
+            s = max(1.0, float(jnp.abs(r1).max()))
+            assert float(jnp.abs(rb[b] - r1).max()) < 1e-8 * s
+
+
+def test_fd_rows_std_batched_vs_jacfwd():
+    """Batched contact-dynamics derivatives, built from the derivative-rows
+    pass, against float64 ``jacfwd`` of the raw forward dynamics."""
+    batch = 2
+    model, frames, cspace, qs, vs, taus = _quadruped_batch(batch)
+    active = jnp.ones((4,))
+    kw = dict(kd=1e-2, contact_dims=(3, 3, 3, 3))
+
+    def raw(q, v, tau):
+        out = ct._cfd_internals(model, q, v, tau, frames, active, **kw)
+        return out["a"], -out["lam"]
+
+    def jac(q, v, tau):
+        z = jnp.zeros((model.nv,))
+        Jq = jax.jacfwd(lambda d: raw(cspace.integrate(q, d), v, tau))(z)
+        Jv = jax.jacfwd(lambda d: raw(q, v + d, tau))(z)
+        Jt = jax.jacfwd(lambda d: raw(q, v, tau + d))(z)
+        return Jq[0], Jv[0], Jt[0], Jq[1], Jv[1], Jt[1]
+
+    got = jax.jit(jax.vmap(
+        lambda q, v, t: drv.constrained_fd_derivatives(
+            model, q, v, t, frames, active, **kw
+        )[2:]
+    ))(qs, vs, taus)
+    ref = jax.jit(jax.vmap(jac))(qs, vs, taus)
+    for g, r in zip(got, ref):
+        s = max(1.0, float(jnp.abs(r).max()))
+        assert float(jnp.abs(g - r).max()) < 1e-8 * s

@@ -3,7 +3,7 @@
 
 RUN THIS UNDER THE REFERENCE'S OWN PYTHON ENVIRONMENT (``import aligator``
 must resolve to the reference bindings) — it has NO dependency on
-``aligator_tpu``.  The output ``.npz`` archives load into the TPU framework
+``aligator_tpu``.  The output ``.npz`` archives load into this framework
 with ``aligator_tpu.utils.interchange.load_problem``, giving the
 apples-to-apples parity harness: the identical instance, produced by the
 reference's own objects, solved by both implementations.
